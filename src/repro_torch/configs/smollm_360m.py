@@ -1,0 +1,9 @@
+"""SmolLM-360M [hf:HuggingFaceTB/SmolLM-360M] — llama-arch small, GQA kv=5."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="smollm-360m", family="dense",
+    num_layers=32, d_model=960, num_heads=15, num_kv_heads=5, head_dim=64,
+    d_ff=2560, vocab_size=49_152,
+    act="silu", tie_embeddings=True,
+)

@@ -1,0 +1,56 @@
+"""Flash attention (prefill): the wrapper around the CUDA kernel
+``csrc/flash_attention.cu`` (which replaces the Pallas kernel
+``repro/kernels/flash_attention/kernel.py:flash_attention``).
+
+The wrapper checks device, shape, dtype and contiguity against the kernel's
+contract for every call; then on CPU tensors it runs the plain version
+(``ref.py``) and on CUDA tensors it launches the kernel on the current stream
+or raises — there is no fallback. ``flash_attention.launches`` counts kernel
+launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from .ref import attention_ref
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """q: (B, H, S, D); k, v: (B, Hkv, S, D) -> (B, H, S, D) in q's type.
+    Any S (the ragged last block is masked)."""
+    if k.device != q.device or v.device != q.device \
+            or q.device.type not in ("cpu", "cuda"):
+        raise ValueError("flash_attention: q, k, v must be on one CUDA "
+                         "device (or all on the CPU)")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    b, h, s, d = q.shape
+    bk, hk, sk, dk = k.shape
+    if bk != b or sk != s or dk != d or d not in HEAD_DIMS or h % hk:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} vs k "
+                         f"{tuple(k.shape)}; head dim must be in {HEAD_DIMS}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}; need one of float32, bfloat16")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: inputs must be contiguous")
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal)
+    out = torch.empty_like(q)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hk,
+            s, d, int(causal), DTYPES[q.dtype], stream)
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

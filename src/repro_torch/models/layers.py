@@ -1,0 +1,408 @@
+"""Building-block layers: norms, rotary, attention, MLP (PyTorch port of
+``repro/models/layers.py``, dense path).
+
+Conventions:
+  * parameters live in ``nn.Module``s whose attribute names are the JAX
+    package's parameter keys (``wq``, ``w_gate``, ``scale``...); the apply
+    functions take the module and plain tensors
+  * activations follow ``cfg.dtype``; softmax/normalization in fp32
+  * KV caches are dicts of tensors that the attention functions update
+    **in place** (``index_put_`` / ``copy_``) and return — where the JAX
+    package returns new, donated pools. A caller that needs the old cache
+    must copy it first.
+  * ``backend`` picks the attention compute: ``"kernel"`` (the default — the
+    hand-written CUDA kernels on CUDA tensors, their plain versions on CPU
+    tensors) or ``"torch"`` (the gather + ``_sdpa`` oracle, mirroring the
+    JAX package's ``"xla"``)
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..kernels.flash_attention import flash_attention
+from ..kernels.paged_attention import paged_attention
+
+BACKENDS = ("kernel", "torch")
+NEG_INF = -1e30
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown attention backend {backend!r}; "
+                         f"choose from {BACKENDS}")
+
+
+# ---------------------------------------------------------------------------
+# sharding hooks: single-device port, so both are no-ops until slice 8
+# ---------------------------------------------------------------------------
+def guard_entry(s, dim: int, axes: dict):
+    """The axis-drop policy of the JAX package's sharding rules; with no mesh
+    every entry is dropped."""
+    return None
+
+
+def constrain(x: torch.Tensor, *spec) -> torch.Tensor:
+    """Activation sharding constraint; a no-op on one device."""
+    return x
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _normal(gen: Optional[torch.Generator], shape, std: float, dtype,
+            device) -> torch.Tensor:
+    """N(0, std^2) drawn in fp32 on the generator's device, then cast and
+    placed; ``gen=None`` leaves the tensor uninitialised (to be filled)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device) * std
+    return w.to(device=device, dtype=dtype)
+
+
+def dense_init(gen, in_dim: int, out_dim: int, dtype, device) -> torch.Tensor:
+    return _normal(gen, (in_dim, out_dim), 1.0 / math.sqrt(in_dim), dtype,
+                   device)
+
+
+def embed_init(gen, vocab: int, dim: int, dtype, device) -> torch.Tensor:
+    return _normal(gen, (vocab, dim), 0.02, dtype, device)
+
+
+class RMSNorm(nn.Module):
+    """Zero-initialised scale applied as ``(1 + scale)``."""
+
+    def __init__(self, dim: int, device):
+        super().__init__()
+        self.scale = _param(torch.zeros(dim, dtype=torch.float32,
+                                        device=device))
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+        super().__init__()
+        dt = dtype_of(cfg)
+        d, h, hk, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+            cfg.head_dim
+        self.wq = _param(dense_init(gen, d, h * hd, dt, device))
+        self.wk = _param(dense_init(gen, d, hk * hd, dt, device))
+        self.wv = _param(dense_init(gen, d, hk * hd, dt, device))
+        self.wo = _param(dense_init(gen, h * hd, d, dt, device))
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(hd, device)
+            self.k_norm = RMSNorm(hd, device)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+        super().__init__()
+        dt = dtype_of(cfg)
+        d, f = cfg.d_model, cfg.d_ff
+        self.w_gate = _param(dense_init(gen, d, f, dt, device))
+        self.w_up = _param(dense_init(gen, d, f, dt, device))
+        self.w_down = _param(dense_init(gen, f, d, dt, device))
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm / rotary
+# ---------------------------------------------------------------------------
+def rmsnorm(params: RMSNorm, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    xf = xf * torch.rsqrt(var + cfg.norm_eps)
+    return (xf * (params.scale + 1.0)).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device),
+                     exps)
+    angles = positions[..., :, None, None].float() * freq
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+def _qkv(params: Attention, x: torch.Tensor, cfg: ModelConfig,
+         positions: torch.Tensor):
+    b, s, _ = x.shape
+    h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ params.wq).reshape(b, s, h, hd)
+    k = (x @ params.wk).reshape(b, s, hk, hd)
+    v = (x @ params.wv).reshape(b, s, hk, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(params.q_norm, q, cfg)
+        k = rmsnorm(params.k_norm, k, cfg)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
+    """q: (B,Sq,H,D); k,v: (B,Skv,Hkv,D); mask: (B|1, Sq, Skv) bool
+    (True = attend). Probabilities are cast to v's type before the PV
+    product, as in the JAX package."""
+    b, sq, h, hd = q.shape
+    hk = k.shape[2]
+    g = h // hk
+    q = q.reshape(b, sq, hk, g, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", q, k).float()
+    scores = scores / math.sqrt(hd)
+    scores = torch.where(mask[:, None, None, :, :], scores,
+                         torch.tensor(NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, sq, h * hd)
+
+
+def _block_mask(q0: int, k0: int, cq: int, ckv: int, device) -> torch.Tensor:
+    """(cq, ckv) causal mask for a (q-chunk, kv-chunk) block at offsets."""
+    qpos = q0 + torch.arange(cq, device=device)[:, None]
+    kpos = k0 + torch.arange(ckv, device=device)[None, :]
+    return kpos <= qpos
+
+
+def _sdpa_chunked(q, k, v, cfg: ModelConfig, q_chunk: int = 1024,
+                  kv_chunk: int = 1024) -> torch.Tensor:
+    """Online softmax over KV chunks inside a loop over Q chunks — never
+    materializes the (S, S) score matrix (causal)."""
+    b, s, h, hd = q.shape
+    hk = k.shape[2]
+    g = h // hk
+
+    def pick(target):
+        c = min(target, s)
+        while c > 1 and s % c:
+            c //= 2
+        return max(c, 1)
+
+    cq, ckv = pick(q_chunk), pick(kv_chunk)
+    qt = q.reshape(b, s, hk, g, hd).permute(0, 2, 3, 1, 4)    # (B,K,G,S,D)
+    kt = k.permute(0, 2, 1, 3)                                 # (B,K,S,D)
+    vt = v.permute(0, 2, 1, 3)
+    scale = 1.0 / math.sqrt(hd)
+    blocks = []
+    for qi in range(s // cq):
+        qc = qt[:, :, :, qi * cq:(qi + 1) * cq]
+        m_run = torch.full((b, hk, g, cq), -math.inf, device=q.device)
+        l_run = torch.zeros((b, hk, g, cq), device=q.device)
+        acc = torch.zeros((b, hk, g, cq, hd), device=q.device)
+        for kj in range(s // ckv):
+            kc = kt[:, :, kj * ckv:(kj + 1) * ckv]
+            vc = vt[:, :, kj * ckv:(kj + 1) * ckv]
+            s_blk = torch.einsum("bkgqd,bktd->bkgqt", qc, kc).float() * scale
+            mask = _block_mask(qi * cq, kj * ckv, cq, ckv, q.device)
+            s_blk = torch.where(mask, s_blk,
+                                torch.tensor(NEG_INF, device=q.device))
+            m_new = torch.maximum(m_run, s_blk.amax(-1))
+            p = torch.exp(s_blk - m_new[..., None])
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(-1)
+            acc = acc * corr[..., None] \
+                + torch.einsum("bkgqt,bktd->bkgqd", p, vc.float())
+            m_run = m_new
+        blocks.append(acc / l_run.clamp_min(1e-30)[..., None])
+    out = torch.cat(blocks, dim=3)                             # (B,K,G,S,D)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h * hd)
+    return out.to(v.dtype)
+
+
+_CHUNK_THRESHOLD = 2048  # the torch backend's chunked path beyond this
+
+
+def _sdpa_dispatch(q, k, v, cfg: ModelConfig, backend: str) -> torch.Tensor:
+    """Causal full-sequence attention. ``"kernel"`` runs the flash kernel
+    (its plain version on CPU tensors); ``"torch"`` the XLA-path mirror
+    (``_sdpa`` / ``_sdpa_chunked``). Window and prefix-LM masks never occur
+    for the dense family this port serves."""
+    check_backend(backend)
+    b, s, h, hd = q.shape
+    if backend == "kernel":
+        out = flash_attention(q.transpose(1, 2).contiguous(),
+                              k.transpose(1, 2).contiguous(),
+                              v.transpose(1, 2).contiguous(), causal=True)
+        return out.transpose(1, 2).reshape(b, s, h * hd)
+    if s > _CHUNK_THRESHOLD:
+        return _sdpa_chunked(q, k, v, cfg)
+    return _sdpa(q, k, v, causal_mask(s, s, device=q.device), cfg)
+
+
+def causal_mask(sq: int, skv: int, device=None) -> torch.Tensor:
+    """(1, sq, skv) causal mask; sq positions are the last sq of skv."""
+    qpos = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=device)[None, :]
+    return (kpos <= qpos)[None]
+
+
+def attention_prefill(params: Attention, x: torch.Tensor, cfg: ModelConfig,
+                      cache: dict, backend: str = "kernel"):
+    """Full-sequence pass that also fills the dense decode cache (in place)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _qkv(params, x, cfg, positions)
+    out = _sdpa_dispatch(q, k, v, cfg, backend)
+    s_max = cache["k"].shape[1]
+    cache["k"][:, :min(s, s_max)] = k[:, :s_max]
+    cache["v"][:, :min(s, s_max)] = v[:, :s_max]
+    return out @ params.wo, cache
+
+
+def attention_decode(params: Attention, x: torch.Tensor, cfg: ModelConfig,
+                     cache: dict, pos: torch.Tensor):
+    """One-token decode against the dense cache {'k','v': (B, S_max, Hkv, D)}
+    (updated in place). ``pos`` is () for a lockstep batch or (B,) when each
+    row sits at its own depth."""
+    b = x.shape[0]
+    per_slot = pos.dim() == 1
+    positions = pos[:, None] if per_slot else pos.expand(b, 1)
+    q, k, v = _qkv(params, x, cfg, positions)
+    s_max = cache["k"].shape[1]
+    if per_slot:
+        rows = torch.arange(b, device=x.device)
+        cache["k"][rows, pos.long()] = k[:, 0]
+        cache["v"][rows, pos.long()] = v[:, 0]
+        qref = pos[:, None]
+    else:
+        cache["k"].index_copy_(1, pos.long().reshape(1), k)
+        cache["v"].index_copy_(1, pos.long().reshape(1), v)
+        qref = pos.reshape(1, 1)
+    kpos = torch.arange(s_max, device=x.device)[None, :]
+    mask = kpos <= qref                               # (B|1, S_max)
+    out = _sdpa(q, cache["k"], cache["v"], mask[:, None, :], cfg)
+    return out @ params.wo, cache
+
+
+def init_attention_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
+                         device) -> dict:
+    hk, hd = cfg.num_kv_heads, cfg.head_dim
+    return {"k": torch.zeros((batch, s_max, hk, hd), dtype=dtype, device=device),
+            "v": torch.zeros((batch, s_max, hk, hd), dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# paged attention (block-table KV cache — the serving engine's memory plane)
+# ---------------------------------------------------------------------------
+def init_attention_cache_paged(cfg: ModelConfig, num_pages: int,
+                               page_size: int, dtype, device) -> dict:
+    """Physical page pool for one attention layer: K/V as (P, page, Hkv, D).
+    Page 0 is the null/trash page (see ``serve.paging``)."""
+    hk, hd = cfg.num_kv_heads, cfg.head_dim
+    shape = (num_pages, page_size, hk, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """pages: (P, page, Hkv, D); table: (..., maxp) -> (..., maxp*page, Hkv, D)."""
+    g = pages[table.long()]
+    return g.reshape(*table.shape[:-1], -1, *pages.shape[2:])
+
+
+def attention_decode_paged(params: Attention, x: torch.Tensor,
+                           cfg: ModelConfig, cache: dict, pos: torch.Tensor,
+                           table: torch.Tensor, active: torch.Tensor,
+                           backend: str = "kernel"):
+    """One-token decode against the paged pool {'k','v': (P, page, Hkv, D)}.
+
+    ``pos`` (B,) each slot's cache position; ``table`` (B, maxp) int32 block
+    table; ``active`` (B,) routes inactive slots' writes to the null page.
+    The new K/V is written into the pool in place. ``backend="kernel"`` runs
+    the paged-decode kernel over the block table (its plain version on CPU
+    tensors); ``"torch"`` gathers the pages into a dense (B, maxp*page, ...)
+    K/V and runs the masked-softmax oracle."""
+    check_backend(backend)
+    b = x.shape[0]
+    q, k, v = _qkv(params, x, cfg, pos[:, None])
+    page = cache["k"].shape[1]
+    rows = torch.arange(b, device=x.device)
+    posl = pos.long()
+    pidx = torch.where(active, table[rows, posl // page].long(),
+                       torch.zeros_like(posl))
+    off = posl % page
+    cache["k"].index_put_((pidx, off), k[:, 0])
+    cache["v"].index_put_((pidx, off), v[:, 0])
+    if backend == "kernel":
+        out = paged_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
+                              table, (pos + 1).to(torch.int32))
+        out = out.reshape(b, 1, -1).to(v.dtype)
+    else:
+        gk = _gather_pages(cache["k"], table)
+        gv = _gather_pages(cache["v"], table)
+        kpos = torch.arange(gk.shape[1], device=x.device)[None, :]
+        mask = kpos <= pos[:, None]
+        out = _sdpa(q, gk, gv, mask[:, None, :], cfg)
+    return out @ params.wo, cache
+
+
+def attention_prefill_paged(params: Attention, x: torch.Tensor,
+                            cfg: ModelConfig, cache: dict,
+                            table_row: torch.Tensor, p0: int):
+    """One prefill chunk (batch of 1) written straight into the slot's pages.
+    x: (1, C, D); ``table_row`` (maxp,); ``p0`` the chunk's first absolute
+    position. Queries attend over the gathered pages (masked)."""
+    _, c, _ = x.shape
+    lpos = p0 + torch.arange(c, device=x.device)
+    q, k, v = _qkv(params, x, cfg, lpos[None, :])
+    page = cache["k"].shape[1]
+    pidx = table_row.long()[lpos // page]
+    cache["k"].index_put_((pidx, lpos % page), k[0])
+    cache["v"].index_put_((pidx, lpos % page), v[0])
+    gk = _gather_pages(cache["k"], table_row)[None]
+    gv = _gather_pages(cache["v"], table_row)[None]
+    kpos = torch.arange(gk.shape[1], device=x.device)[None, :]
+    mask = (kpos <= lpos[:, None])[None]
+    out = _sdpa(q, gk, gv, mask, cfg)
+    return out @ params.wo, cache
+
+
+def attention_prefill_paged_multi(params: Attention, x: torch.Tensor,
+                                  cfg: ModelConfig, cache: dict,
+                                  tables: torch.Tensor, p0s: torch.Tensor):
+    """``J`` concurrent prefill chunks, one per lane. x: (J, C, D); ``tables``
+    (J, maxp); ``p0s`` (J,). Padding lanes carry all-null tables, so their
+    writes land on the trash page."""
+    j, c, _ = x.shape
+    lpos = p0s.long()[:, None] + torch.arange(c, device=x.device)[None, :]
+    q, k, v = _qkv(params, x, cfg, lpos)
+    page = cache["k"].shape[1]
+    pidx = torch.gather(tables.long(), 1, lpos // page)
+    off = lpos % page
+    cache["k"].index_put_((pidx, off), k)
+    cache["v"].index_put_((pidx, off), v)
+    gk = _gather_pages(cache["k"], tables)
+    gv = _gather_pages(cache["v"], tables)
+    kpos = torch.arange(gk.shape[1], device=x.device)[None, None, :]
+    mask = kpos <= lpos[:, :, None]
+    out = _sdpa(q, gk, gv, mask, cfg)
+    return out @ params.wo, cache
+
+
+# ---------------------------------------------------------------------------
+# gated MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+def mlp(params: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    gate = x @ params.w_gate
+    act = F.silu(gate) if cfg.act == "silu" else F.gelu(gate, approximate="tanh")
+    return (act * (x @ params.w_up)) @ params.w_down

@@ -1,0 +1,285 @@
+"""Top-level model API: init / prefill / decode / sampling / paged-pool surgery
+(PyTorch port of ``repro/models/model.py``, dense family).
+
+Batch layouts: prefill ``{"tokens": (B, S) int}``, decode
+``{"token": (B, 1) int}`` plus a cache and its ``pos``. The model is a
+:class:`Model` module; every function takes it as ``params`` so the call
+shapes mirror the JAX package's. Caches are updated in place (see
+``layers``); the returned cache dicts share their tensors with the inputs.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from .. import configs, prng
+from ..configs.base import ModelConfig
+from . import layers, transformer
+from .layers import RMSNorm, dtype_of, embed_init, rmsnorm
+
+
+class SamplingSpec(NamedTuple):
+    """Per-lane sampling tensors for a batch of decode lanes (one row per
+    engine slot or one-shot sequence)."""
+
+    keys: torch.Tensor          # (B, 2) int64 threefry key words
+    temperature: torch.Tensor   # (B,) f32; 0 => exact argmax (greedy lane)
+    top_k: torch.Tensor         # (B,) int; 0 => disabled
+    top_p: torch.Tensor         # (B,) f32; 1.0 => disabled
+    rep_penalty: torch.Tensor   # (B,) f32; 1.0 => disabled
+    pres_penalty: torch.Tensor  # (B,) f32; 0.0 => disabled
+    freq_penalty: torch.Tensor  # (B,) f32; 0.0 => disabled
+
+
+class Model(nn.Module):
+    """Token embedding, the block stack and the final norm (+ untied head).
+    ``gen=None`` allocates the parameters uninitialised (to be filled, e.g.
+    by :func:`params_from_numpy`)."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
+                 device):
+        super().__init__()
+        configs.require_supported(cfg)
+        dt = dtype_of(cfg)
+        self.embed = layers._param(embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                              dt, device))
+        self.blocks = transformer.init_stack(cfg, gen, device)
+        self.final_norm = RMSNorm(cfg.d_model, device)
+        if not cfg.tie_embeddings:
+            self.head = layers._param(embed_init(gen, cfg.vocab_size,
+                                                 cfg.d_model, dt, device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                device="cuda") -> Model:
+    """Random parameters drawn from ``gen`` (on the generator's device),
+    placed on ``device``."""
+    return Model(cfg, gen, torch.device(device))
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))          # writable copy
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Model:
+    """The JAX package's parameter tree (nested dicts of numpy arrays; the
+    stack as ``[[block dict]]`` with a leading depth dimension) as a
+    :class:`Model` on ``device`` — how both packages compute on the same
+    weights."""
+    model = Model(cfg, None, torch.device(device))
+
+    def leaf(node, path):
+        for k in path:
+            node = node[k]
+        return node
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            path = name.split(".")
+            if path[0] == "blocks":
+                li, rest = int(path[1]), path[2:]
+                arr = leaf(tree["stack"][0][0], rest)[li]
+            else:
+                arr = leaf(tree, path)
+            src = _tensor(arr)
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(src.shape)} != "
+                                 f"{tuple(p.shape)}")
+            p.copy_(src.to(p.dtype))
+    return model
+
+
+def _embed(params: Model, cfg: ModelConfig, tokens: torch.Tensor):
+    x = params.embed[tokens.long()]
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    return x
+
+
+def _head(params: Model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = rmsnorm(params.final_norm, x, cfg)
+    table = params.embed if cfg.tie_embeddings else params.head
+    return (x @ table.T).float()
+
+
+def penalize_logits(lg: torch.Tensor, spec: SamplingSpec,
+                    counts: torch.Tensor) -> torch.Tensor:
+    """Per-lane repetition / presence / frequency penalties on (B, V) logits
+    given ``counts`` (B, V) of generated tokens; lanes with all three at
+    their neutral values are returned bitwise unchanged."""
+    cnt = counts.float()
+    counted = cnt > 0
+    rep = spec.rep_penalty[:, None]
+    scaled = torch.where(lg > 0, lg / rep, lg * rep)
+    pen = torch.where(counted, scaled, lg) \
+        - spec.freq_penalty[:, None] * cnt \
+        - spec.pres_penalty[:, None] * counted.float()
+    neutral = ((spec.rep_penalty == 1.0) & (spec.pres_penalty == 0.0)
+               & (spec.freq_penalty == 0.0))
+    return torch.where(neutral[:, None], lg, pen)
+
+
+def sample_tokens(logits: torch.Tensor, spec: SamplingSpec, step,
+                  counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One token per lane from last-position ``logits`` ((B, V) or (B, T, V))
+    under per-lane ``SamplingSpec`` rows; the lane key is
+    ``fold_in(lane key, step)`` (``step`` scalar or (B,)), so a request's
+    draws depend only on its own progress. Per lane: scale by temperature,
+    full stable descending sort, top-k rank mask, top-p cumulative-mass mask
+    (the top token always survives), Gumbel draw over the survivors —
+    bit-compatible with ``jax.random``. Temperature-0 lanes take the exact
+    argmax. Returns (B, 1) int32."""
+    lg = logits[:, -1] if logits.dim() == 3 else logits
+    if counts is not None:
+        lg = penalize_logits(lg, spec, counts)
+    b, v = lg.shape
+    greedy_tok = torch.argmax(lg, dim=-1)
+    steps = torch.as_tensor(step, device=lg.device).to(torch.int64).expand(b)
+    keys = prng.fold_in(spec.keys, steps)
+    scaled = lg / spec.temperature.clamp_min(1e-6)[:, None]
+    vals, idx = torch.sort(scaled, dim=-1, descending=True, stable=True)
+    ranks = torch.arange(v, device=lg.device)[None, :]
+    keep_k = ranks < torch.where(spec.top_k > 0, spec.top_k,
+                                 torch.full_like(spec.top_k, v))[:, None]
+    probs = torch.softmax(vals, dim=-1)
+    mass_before = torch.cumsum(probs, dim=-1) - probs
+    masked = torch.where(keep_k & (mass_before < spec.top_p[:, None]), vals,
+                         torch.tensor(-torch.inf, device=lg.device))
+    choice = prng.categorical(keys, masked)
+    sampled = torch.gather(idx, 1, choice[:, None])[:, 0]
+    tok = torch.where(spec.temperature > 0, sampled, greedy_tok)
+    return tok[:, None].to(torch.int32)
+
+
+def chosen_logprob(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """Log-softmax of the raw fp32 logits at each lane's chosen token;
+    ``logits`` (B, V) or (B, T, V) (last position), ``tok`` (B, 1) -> (B, 1)."""
+    lg = logits[:, -1] if logits.dim() == 3 else logits
+    lp = torch.log_softmax(lg.float(), dim=-1)
+    return torch.gather(lp, 1, tok.long())
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> dict:
+    return {"layers": transformer.init_stack_cache(cfg, batch, s_max,
+                                                   dtype_of(cfg), device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def prefill(params: Model, cfg: ModelConfig, batch: dict, cache: dict,
+            attn_backend: str = "kernel"):
+    """Batched prompt processing; fills the cache (in place) and returns the
+    last-position logits (B, 1, V) fp32 and the cache."""
+    x = _embed(params, cfg, batch["tokens"])
+    x, layer_caches = transformer.apply_stack_prefill(
+        params.blocks, x, cfg, cache["layers"], attn_backend=attn_backend)
+    logits = _head(params, cfg, x[:, -1:])
+    return logits, {"layers": layer_caches,
+                    "pos": torch.tensor(x.shape[1], dtype=torch.int32,
+                                        device=x.device)}
+
+
+def decode_step(params: Model, cfg: ModelConfig, batch: dict, cache: dict,
+                table: Optional[torch.Tensor] = None,
+                active: Optional[torch.Tensor] = None,
+                attn_backend: str = "kernel"):
+    """One token for every sequence. ``table`` (B, maxp) switches the
+    attention layers onto the paged pool (``active`` routes inactive lanes'
+    writes to the null page). Returns (logits (B, 1, V), cache with pos+1)."""
+    x = _embed(params, cfg, batch["token"])
+    x, layer_caches = transformer.apply_stack_decode(
+        params.blocks, x, cfg, cache["layers"], cache["pos"], table=table,
+        active=active, attn_backend=attn_backend)
+    return _head(params, cfg, x), {"layers": layer_caches,
+                                   "pos": cache["pos"] + 1}
+
+
+# ---------------------------------------------------------------------------
+# paged slot-pool surgery (block-table KV cache, continuous-batching engine)
+# ---------------------------------------------------------------------------
+def init_slot_cache_paged(cfg: ModelConfig, num_slots: int, s_max: int,
+                          num_pages: int, page_size: int, device) -> dict:
+    """Per-layer physical page pools + a per-slot position vector."""
+    return {"layers": transformer.init_stack_cache_paged(
+                cfg, num_slots, s_max, num_pages, page_size, dtype_of(cfg),
+                device),
+            "pos": torch.zeros((num_slots,), dtype=torch.int32, device=device)}
+
+
+def insert_slot_cache_paged(pool: dict, one: dict, cfg: ModelConfig,
+                            slot: int, table_row: torch.Tensor) -> dict:
+    """Splice a one-shot prefilled batch-of-1 dense cache into ``slot``'s
+    pages (in place): each layer's dense (1, s_max, ...) row is reshaped to
+    (maxp, page, ...) and scattered to the slot's physical pages; rows beyond
+    the slot's allocation land on the null page."""
+    idx = table_row.long()
+
+    def splice(kind, full_d, one_d):
+        for name, full in full_d.items():
+            reps, page = full.shape[0], full.shape[2]
+            chunks = one_d[name].to(full.dtype).reshape(reps, -1, page,
+                                                        *full.shape[3:])
+            full[:, idx] = chunks
+        return full_d
+
+    transformer.map_block_caches(cfg, splice, pool["layers"], one["layers"])
+    pool["pos"][slot] = one["pos"].to(pool["pos"].dtype)
+    return pool
+
+
+def release_slot_cache_paged(pool: dict, cfg: ModelConfig, slot: int) -> dict:
+    """Retire a slot: zero its position. Physical pages are not zeroed —
+    they return to the host free list, and stale contents are read masked."""
+    pool["pos"][slot] = 0
+    return pool
+
+
+def prefill_chunk(params: Model, cfg: ModelConfig, batch: dict, pool: dict,
+                  table_row: torch.Tensor, p0: int, last_idx: int):
+    """One chunk of a chunked prefill written straight into the paged pool;
+    returns the logits at in-chunk index ``last_idx`` (1, 1, V). The pool's
+    ``pos`` is untouched."""
+    x = _embed(params, cfg, batch["tokens"])
+    x, layer_caches = transformer.apply_stack_prefill_chunk(
+        params.blocks, x, cfg, pool["layers"], table_row, p0)
+    logits = _head(params, cfg, x[:, last_idx:last_idx + 1])
+    return logits, {"layers": layer_caches, "pos": pool["pos"]}
+
+
+def prefill_chunk_multi(params: Model, cfg: ModelConfig, batch: dict,
+                        pool: dict, tables: torch.Tensor, p0s: torch.Tensor,
+                        last_idx: torch.Tensor):
+    """J concurrent prefill chunks (one in-flight job per lane) in one call;
+    returns (J, 1, V) logits at each lane's ``last_idx``."""
+    x = _embed(params, cfg, batch["tokens"])
+    x, layer_caches = transformer.apply_stack_prefill_chunk_multi(
+        params.blocks, x, cfg, pool["layers"], tables, p0s)
+    rows = torch.arange(x.shape[0], device=x.device)
+    sel = x[rows, last_idx.long()][:, None]
+    return _head(params, cfg, sel), {"layers": layer_caches,
+                                     "pos": pool["pos"]}
+
+
+def copy_page_paged(pool: dict, cfg: ModelConfig, src: int, dst: int) -> dict:
+    """Copy-on-write fork: duplicate physical page ``src`` into ``dst`` in
+    every layer's pool (in place)."""
+    def cp(kind, full_d):
+        for full in full_d.values():
+            full[:, dst] = full[:, src]
+        return full_d
+
+    transformer.map_block_caches(cfg, cp, pool["layers"])
+    return pool
+
+
+def param_count(params: Model) -> int:
+    return sum(p.numel() for p in params.parameters())

@@ -1,0 +1,994 @@
+"""Continuous-batching serving engine governed by the paper's immune
+primitives, over a paged KV cache with chunked prefill (PyTorch port of
+``repro/serve/engine.py``).
+
+The engine keeps a fixed pool of decode **slots** and admits requests
+mid-stream; finished sequences retire and their slot is reused. Every tick
+runs ONE batched decode step over all slots (inactive lanes compute a
+garbage token the host discards, and their K/V writes go to the null page).
+
+Memory plane: each attention layer's K/V is a physical page pool
+``(num_pages, page_size, Hkv, D)`` (stacked over depth); page 0 is the
+null/trash page. The host-side ``serve.paging.PageAllocator`` maps each
+slot's logical pages to physical ones and hands the device a dense
+``(num_slots, max_cache // page_size)`` block table per tick, which the
+paged-decode kernel walks directly. Admission charges pages under
+``"preempt"`` (current footprint; decode growth acquires pages on demand and
+preempts the lowest-immune-priority resident when the pool runs dry — the
+victim re-prefills and replays its recorded tokens bitwise) or
+``"reserve"`` (worst case up front). Prefix sharing (refcounted prompt pages,
+copy-on-write forks of a partial last page) and the pinned prefix cache
+work as in the reference.
+
+Compute plane: one-shot prefill (``prefill_chunk == 0``, the default) runs
+the whole prompt through the flash-attention kernel into a dense batch-of-1
+cache and splices it into the slot's pages; chunked prefill
+(``prefill_chunk > 0``) lands one chunk per tick straight into the pages
+(``prefill_streams > 1`` batches several jobs per call). Decode runs the
+paged attention through ``EngineConfig.attn_backend``: ``"kernel"`` (the
+CUDA kernel on the card) or ``"torch"`` (the gather oracle).
+
+Admission is the immune loop applied to serving — schedule on remembered
+cost, not instantaneous load:
+
+  * ``ImmuneMemory``      — EMA of per-class decode cost (slot-ticks);
+                            candidates are ordered by remembered cost.
+  * ``TwoStageRegulator`` — admission-burst throttle with delayed negative
+                            feedback, damping convoys.
+  * ``AnergyGate``        — classes that keep blowing their latency budget
+                            without co-stimulation are shed; IL-2 revives
+                            them when queue pressure drops.
+
+Not ported yet: speculative decoding and slot groups (slice 2), and the
+fleet hooks — evacuation, warm-state export/import and placement telemetry
+(slice 6).
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Iterator, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..core import immune
+from ..models import layers, model
+from .api import RequestOutput, ServeRequest, spec_for
+from .decode import greedy, null_spec, topk_logprobs
+from .paging import OutOfPages, PageAllocator, pages_for
+
+
+class EngineConfig(NamedTuple):
+    num_slots: int = 4
+    max_cache: int = 96               # per-slot logical KV capacity (tokens)
+    policy: str = "immune"            # "immune" | "fifo"
+    num_classes: int = 4
+    # latency_budget is engine TICKS, compared only against tick latencies; a
+    # ServeRequest.deadline is wall-clock SECONDS, compared only against
+    # wall-clock latencies (see Engine._slo)
+    latency_budget: float = 32.0
+    mem_decay: float = 0.8            # cost-memory EMA decay
+    reg_threshold: float = 2.0        # admission pauses while response exceeds this
+    shed_level: float = 0.5           # anergy level above which a class is shed
+    low_pressure: float = 0.5         # queue_len < low_pressure*num_slots -> IL-2
+    anergy_onset: float = 0.34
+    anergy_revival: float = 0.3
+    # -- paged KV plane ------------------------------------------------------
+    page_size: int = 16               # tokens per physical page
+    num_pages: Optional[int] = None   # pool size incl. the null page; None ->
+    #                                   fully provisioned (slots*maxp + 1)
+    prefill_chunk: int = 0            # >0: chunked prefill, one chunk per tick
+    prefix_sharing: bool = True       # refcounted prompt-prefix page sharing
+    attn_backend: str = "kernel"      # "kernel" | "torch"
+    prefill_streams: int = 1          # >1: batch that many prefill jobs/tick
+    capture_logits: bool = False      # record per-token logits rows
+    admission_mode: str = "preempt"   # "preempt" | "reserve"
+    pin_pages: int = 0                # persistent prefix-cache budget (pages)
+    spec_decode: int = 0              # speculative decoding: slice 2
+
+
+@dataclass
+class _PrefillJob:
+    """An in-flight chunked prefill; ``p0`` starts past any shared prefix."""
+    req: ServeRequest
+    slot: int
+    p0: int          # next chunk's first absolute position
+    total: int       # padded prompt end (p0 grid aligned to prefill_chunk)
+    length: int      # true prompt length
+    share: bool = False   # register this prompt's full pages on completion
+
+
+# ---------------------------------------------------------------------------
+# slot-pool steps (the JAX package's jitted helpers; here eager, in place)
+# ---------------------------------------------------------------------------
+def _prefill_one(params, cfg: ModelConfig, prompts: dict, max_cache: int,
+                 attn_backend: str):
+    """Prefill a batch-of-1 prompt into a fresh dense cache; returns
+    (last-position logits, cache) — the first stage of ``decode.generate``."""
+    cache = model.init_cache(cfg, 1, max_cache, prompts["tokens"].device)
+    return model.prefill(params, cfg, prompts, cache,
+                         attn_backend=attn_backend)
+
+
+def _seed_token(logits, spec, do_sample: bool) -> torch.Tensor:
+    """First emitted token: exact argmax, or the request's sampling lane at
+    fold index 0 — the draw one-shot ``decode.generate`` takes first."""
+    return model.sample_tokens(logits, spec, 0) if do_sample \
+        else greedy(logits)
+
+
+def _decode_tick(params, cfg: ModelConfig, pool, last, active, table, spec,
+                 steps_done, pen_counts, attn_backend: str, do_sample: bool,
+                 return_logits: bool, return_logprobs: bool,
+                 use_penalties: bool, return_topk: int):
+    """One token for every slot (occupied or not). Inactive slots advance
+    neither position nor last token; their paged writes land on the null
+    page. Sampling lanes fold each slot's emitted-token count into its key.
+    ``ok`` flags lanes whose logits are all finite (the NaN/Inf guard)."""
+    logits, new_pool = model.decode_step(params, cfg, {"token": last}, pool,
+                                         table=table, active=active,
+                                         attn_backend=attn_backend)
+    nxt = model.sample_tokens(logits, spec, steps_done,
+                              counts=pen_counts if use_penalties else None) \
+        if do_sample else greedy(logits)
+    pos = torch.where(active, new_pool["pos"], pool["pos"])
+    last = torch.where(active[:, None], nxt, last)
+    ok = torch.isfinite(logits).flatten(1).all(dim=1)
+    topk = topk_logprobs(logits, return_topk) if return_topk else None
+    return (nxt, last, {"layers": new_pool["layers"], "pos": pos}, ok,
+            logits if return_logits else None,
+            model.chosen_logprob(logits, nxt) if return_logprobs else None,
+            topk)
+
+
+# ---------------------------------------------------------------------------
+# immune admission controller
+# ---------------------------------------------------------------------------
+class ImmuneAdmission:
+    """Host-side admission controller over the three immune primitives.
+
+    Per tick: completions feed the cost memory and the anergy
+    stimulus/co-stimulus counters; ``end_tick`` advances the regulator (with
+    the tick's admissions as stimulus) and the anergy gate (with IL-2
+    flowing when queue pressure is low)."""
+
+    def __init__(self, ecfg: EngineConfig):
+        self.ecfg = ecfg
+        c = ecfg.num_classes
+        self.memory = immune.ImmuneMemory.create((c,), decay=ecfg.mem_decay)
+        self.regulator = immune.TwoStageRegulator.create()
+        self.reg_state = self.regulator.init(())
+        self.gate = immune.AnergyGate.create(onset=ecfg.anergy_onset,
+                                             revival=ecfg.anergy_revival)
+        self.anergy = self.gate.init((c,))
+        self._blown = np.zeros(c, np.float32)
+        self._ok = np.zeros(c, np.float32)
+
+    def remembered_cost(self, rclass: int) -> float:
+        return float(self.memory.value[rclass])
+
+    def observe_completion(self, rclass: int, cost: float, latency: float,
+                           budget: Optional[float] = None):
+        # per-class EMA: observing `value` for the untouched classes leaves
+        # them unchanged under decay*v + (1-decay)*obs
+        obs = self.memory.value.clone()
+        obs[rclass] = cost
+        self.memory = self.memory.update(obs)
+        if budget is None:
+            budget = self.ecfg.latency_budget
+        if latency > budget:
+            self._blown[rclass] += 1.0
+        else:
+            self._ok[rclass] += 1.0
+
+    def admissible(self, rclass: int) -> bool:
+        return float(self.anergy.level[rclass]) <= self.ecfg.shed_level
+
+    def throttled(self) -> bool:
+        return float(self.reg_state.response) > self.ecfg.reg_threshold
+
+    def end_tick(self, admitted: int, queue_len: int,
+                 queued_demand: np.ndarray, predicted_cost: np.ndarray):
+        """Advance the regulator and anergy gate one tick. Anergy stimulus is
+        anticipatory: a class with queued demand whose predicted cost already
+        exceeds the latency budget will blow its SLO — antigen without
+        co-stimulation. In-budget completions are the co-stimulation."""
+        stim = admitted / max(self.ecfg.num_slots, 1)
+        self.reg_state = self.regulator.step(self.reg_state, stim)
+        il2 = 1.0 if queue_len < self.ecfg.low_pressure * self.ecfg.num_slots \
+            else 0.0
+        will_blow = (queued_demand > 0) & \
+            (predicted_cost > self.ecfg.latency_budget)
+        self.anergy = self.gate.step(
+            self.anergy,
+            stimulus=((self._blown > 0) | will_blow).astype(np.float32),
+            costimulus=(self._ok > 0).astype(np.float32),
+            il2=il2)
+        self._blown[:] = 0.0
+        self._ok[:] = 0.0
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+class Engine:
+    """Continuous-batching decode over a paged slot pool with queue admission.
+    ``params`` must already live on ``device``."""
+
+    def __init__(self, params, cfg: ModelConfig, ecfg: EngineConfig,
+                 device="cuda"):
+        if ecfg.max_cache % ecfg.page_size:
+            raise ValueError(f"max_cache {ecfg.max_cache} must be a multiple "
+                             f"of page_size {ecfg.page_size}")
+        if ecfg.prefill_chunk and ecfg.max_cache % ecfg.prefill_chunk:
+            raise ValueError(f"max_cache {ecfg.max_cache} must be a multiple "
+                             f"of prefill_chunk {ecfg.prefill_chunk}")
+        layers.check_backend(ecfg.attn_backend)
+        if ecfg.admission_mode not in ("preempt", "reserve"):
+            raise ValueError(f"unknown admission_mode {ecfg.admission_mode!r}")
+        if ecfg.spec_decode:
+            raise NotImplementedError(
+                "speculative decoding (spec_decode > 0) is ported in slice 2")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if params.device != self.device:
+            raise ValueError(f"params live on {params.device}, engine device "
+                             f"is {self.device}")
+        self.params, self.cfg, self.ecfg = params, cfg, ecfg
+        s = ecfg.num_slots
+        self.maxp = ecfg.max_cache // ecfg.page_size
+        num_pages = ecfg.num_pages if ecfg.num_pages is not None \
+            else s * self.maxp + 1
+        self.alloc = PageAllocator(
+            num_pages, ecfg.page_size, s, self.maxp,
+            share_prefix=ecfg.prefix_sharing, pin_pages=ecfg.pin_pages,
+            num_classes=ecfg.num_classes, pin_decay=ecfg.mem_decay,
+            require_reservation=(ecfg.admission_mode == "reserve"))
+        # prefix sharing needs K/V to be a pure function of the token prefix
+        # (true for the dense stack) and a chunked tail prefill to land only
+        # the unshared suffix
+        # chunked prefill is exact against one-shot prefill for the dense
+        # stack, so it applies to every request once switched on
+        self._chunked = ecfg.prefill_chunk > 0
+        self._share_ok = ecfg.prefix_sharing and self._chunked
+        self._multi_prefill = ecfg.prefill_streams > 1
+        dev = self.device
+        self.pool = model.init_slot_cache_paged(cfg, s, ecfg.max_cache,
+                                                num_pages, ecfg.page_size, dev)
+        self.last = torch.zeros((s, 1), dtype=torch.int32, device=dev)
+        self.active = torch.zeros((s,), dtype=torch.bool, device=dev)
+        self.slots: list[Optional[ServeRequest]] = [None] * s
+        self.jobs: deque[_PrefillJob] = deque()
+        self.pos_host = np.zeros(s, np.int64)      # per-slot next write index
+        self.active_host = np.zeros(s, bool)
+        # per-slot tokens computed since (re-)admission, seed included — the
+        # decode fold_in index; diverges from len(out_tokens) only while a
+        # preempted request replays its recorded history
+        self.emitted = np.zeros(s, np.int64)
+        self.samp_keys = np.zeros((s, 2), np.uint32)
+        self.samp_temp = np.zeros((s,), np.float32)
+        self.samp_topk = np.zeros((s,), np.int64)
+        self.samp_topp = np.ones((s,), np.float32)
+        self.samp_rep = np.ones((s,), np.float32)
+        self.samp_pres = np.zeros((s,), np.float32)
+        self.samp_freq = np.zeros((s,), np.float32)
+        # per-slot generated-token counts over the vocab (penalty state)
+        self.tok_counts = np.zeros((s, cfg.vocab_size), np.int32)
+        self._spec_cache = None
+        self._null_spec = null_spec(s, dev)
+        self.queue: deque[ServeRequest] = deque()
+        self.tick = 0
+        self.completed: list[ServeRequest] = []
+        self.shed: list[ServeRequest] = []
+        self.rejected: list[ServeRequest] = []
+        self.corrupted: list[ServeRequest] = []
+        self._reported_rejected = 0
+        self._reported_shed = 0
+        self._reported_corrupted = 0
+        self.admission = ImmuneAdmission(ecfg) if ecfg.policy == "immune" \
+            else None
+        self.mid_stream_admissions = 0
+        self.unsubmitted = 0
+        self.concurrency_hw = 0
+        self.chunked_prefill_chunks = 0
+        self.prefill_batch_calls = 0
+        self.shared_pages_adopted = 0
+        self.prefill_positions_skipped = 0
+        self.sharable_prompt_pages = 0
+        self.preemptions = 0
+        self.preempted_rids: set = set()
+        self.replayed_tokens = 0
+        self.nowrite_adoptions = 0
+        self.prefill_tokens = 0
+        self.prefills = 0                  # one-shot prefill calls
+        self.decode_ticks = 0              # batched decode steps run
+        self.decode_seconds = 0.0          # host clock inside decode steps
+        self._admitted_this_tick = 0
+        self._decoding_before_admit = False
+
+    def _dev(self, arr, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(arr), dtype=dtype, device=self.device)
+
+    # -- queue ---------------------------------------------------------------
+    def submit(self, req: ServeRequest):
+        """Queue a request. One whose prompt + decode budget can never fit a
+        slot is rejected (recorded, counted against goodput), not raised."""
+        if self.admission is not None and not 0 <= req.rclass < \
+                self.ecfg.num_classes:
+            raise ValueError(f"request {req.rid}: rclass {req.rclass} outside "
+                             f"[0, {self.ecfg.num_classes})")
+        if req.submit_time < 0:
+            req.submit_time = time.perf_counter()
+        need = len(req.tokens) + req.max_new_tokens
+        if need > self.ecfg.max_cache \
+                or self._need_pages(req) > self.alloc.usable_pages:
+            req.finish_reason = "rejected"
+            self.rejected.append(req)
+            return
+        self.queue.append(req)
+
+    # -- sampling lanes ------------------------------------------------------
+    def _pool_spec(self) -> model.SamplingSpec:
+        """The pool's per-lane sampling rows (re-uploaded only after an
+        admission or retirement changed them)."""
+        if self._spec_cache is None:
+            self._spec_cache = model.SamplingSpec(
+                keys=self._dev(self.samp_keys.astype(np.int64)),
+                temperature=self._dev(self.samp_temp),
+                top_k=self._dev(self.samp_topk),
+                top_p=self._dev(self.samp_topp),
+                rep_penalty=self._dev(self.samp_rep),
+                pres_penalty=self._dev(self.samp_pres),
+                freq_penalty=self._dev(self.samp_freq))
+        return self._spec_cache
+
+    def _seed_slot(self, req: ServeRequest, logits) -> torch.Tensor:
+        """Draw the request's first token from its prefill logits and bind
+        its sampling lane to the slot."""
+        p = req.params
+        self.samp_keys[req.slot] = p.key()
+        self.samp_temp[req.slot] = p.temperature
+        self.samp_topk[req.slot] = p.top_k
+        self.samp_topp[req.slot] = p.top_p
+        self.samp_rep[req.slot] = p.repetition_penalty
+        self.samp_pres[req.slot] = p.presence_penalty
+        self.samp_freq[req.slot] = p.frequency_penalty
+        self.tok_counts[req.slot] = 0
+        self._spec_cache = None
+        if self.ecfg.capture_logits and not req.out_tokens:
+            req.out_logits.append(logits[0, -1].cpu().numpy().copy())
+        return _seed_token(logits, spec_for([p], self.device),
+                           do_sample=not p.is_greedy)
+
+    def _emit_seed(self, req: ServeRequest, logits, first) -> None:
+        """Record the prefill-seeded first token (a resuming request already
+        holds it: the re-derived seed is not re-recorded)."""
+        tok = int(first[0, 0])
+        if req.params.has_penalties:
+            self.tok_counts[req.slot, tok] += 1
+        if req.out_tokens:
+            self.replayed_tokens += 1
+            req.replayed_tokens += 1
+            return
+        req.out_tokens.append(tok)
+        if req.params.logprobs:
+            req.out_logprobs.append(
+                float(model.chosen_logprob(logits, first)[0, 0]))
+            tv, ti = topk_logprobs(logits, req.params.logprobs)
+            req.out_topk.append(([int(x) for x in ti[0].cpu()],
+                                 [float(x) for x in tv[0].cpu()]))
+
+    # -- paging --------------------------------------------------------------
+    def _match(self, req: ServeRequest):
+        """Prefix-index match for ``req``, capped so the padded chunk tail
+        stays inside ``max_cache``. Returns ``(full_hits, partial,
+        shared_len)``."""
+        if not self._share_ok:
+            return [], None, 0
+        full, partial = self.alloc.match_prefix(req.tokens)
+        plen = len(req.tokens)
+        c, ps = self.ecfg.prefill_chunk, self.ecfg.page_size
+
+        def padded_end(sl):
+            return sl + -(-(plen - sl) // c) * c
+
+        sl = len(full) * ps + (partial[1] if partial else 0)
+        while sl and padded_end(sl) > self.ecfg.max_cache:
+            if partial is not None:
+                partial = None
+            else:
+                full = full[:-1]
+            sl = len(full) * ps
+        return full, partial, sl
+
+    def _need_pages(self, req: ServeRequest, shared_len: int = 0) -> int:
+        """Worst-case pages this request can ever hold: prompt (+ chunk
+        padding of the unshared tail) plus its full decode budget."""
+        plen = len(req.tokens)
+        cover = plen + req.max_new_tokens
+        if self._chunked:
+            c = self.ecfg.prefill_chunk
+            cover = max(cover, shared_len + -(-(plen - shared_len) // c) * c)
+        return pages_for(cover, self.ecfg.page_size)
+
+    def _table_row(self, slot: int) -> torch.Tensor:
+        return self._dev(self.alloc.table()[slot])
+
+    # -- admission -----------------------------------------------------------
+    def _admit_into(self, req: ServeRequest, slot: int) -> bool:
+        """Try to admit ``req`` into ``slot``; False = not enough pages after
+        prefix-share credit (the caller defers the request). A preempted
+        request re-enters here unchanged: it re-prefills its prompt and
+        replays its recorded tokens through decode."""
+        full, partial, sl = self._match(req)
+        plen = len(req.tokens)
+        c, ps = self.ecfg.prefill_chunk, self.ecfg.page_size
+        chunkable = self._chunked
+        # no-write last page: the only write into the shared page is the
+        # final prompt token, bitwise what the page already holds
+        nowrite = (partial is not None and chunkable
+                   and sl == plen - 1 and plen % ps == 0)
+        if self.ecfg.admission_mode == "reserve":
+            base = self._need_pages(req, sl)
+        else:
+            cover = sl + -(-(plen - sl) // c) * c if chunkable else plen
+            # a resumed request is admitted only once its replay fits
+            cover = max(cover, plen + len(req.out_tokens))
+            base = pages_for(cover, ps)
+        charge = base - len(full) - (1 if nowrite else 0)
+        matched = full + ([partial[0]] if partial else [])
+        avail = self.alloc.available() - self.alloc.pinned_among(matched)
+        if charge > min(avail, self.maxp):
+            return False
+        if full:
+            self.alloc.adopt(slot, full, rclass=req.rclass)
+        if self.ecfg.admission_mode == "reserve":
+            self.alloc.reserve(slot, charge)
+        if self._share_ok:
+            self.sharable_prompt_pages += pages_for(plen, ps)
+            self.shared_pages_adopted += len(full) + (1 if partial else 0)
+            self.prefill_positions_skipped += sl
+        req.slot = slot
+        if req.admit_tick < 0:
+            req.admit_tick = self.tick
+        if req.preempt_tick >= 0:
+            req.requeue_ticks += self.tick - req.preempt_tick
+            req.preempt_tick = -1
+        self.slots[slot] = req
+        if self._decoding_before_admit:
+            self.mid_stream_admissions += 1
+        self._admitted_this_tick += 1
+        if chunkable:
+            if partial is not None:
+                self.alloc.adopt(slot, [partial[0]], rclass=req.rclass)
+                if nowrite:
+                    self.nowrite_adoptions += 1
+                else:
+                    # the unshared tail starts mid-page: copy-on-write fork
+                    src, dst = self.alloc.cow_fork(slot, len(full))
+                    model.copy_page_paged(self.pool, self.cfg, src, dst)
+            total = sl + -(-(plen - sl) // c) * c
+            self.jobs.append(_PrefillJob(req=req, slot=slot, p0=sl,
+                                         total=total, length=plen,
+                                         share=self._share_ok))
+            return True
+        logits, one = _prefill_one(self.params, self.cfg,
+                                   req.prompts(self.device),
+                                   self.ecfg.max_cache, self.ecfg.attn_backend)
+        self.prefills += 1
+        first = self._seed_slot(req, logits)
+        self.alloc.ensure(slot, pages_for(plen, ps))
+        model.insert_slot_cache_paged(self.pool, one, self.cfg, slot,
+                                      self._table_row(slot))
+        self.last[slot] = first[0]
+        self.active[slot] = True
+        self.active_host[slot] = True
+        self.pos_host[slot] = plen
+        self.emitted[slot] = 1
+        req.prefill_tokens += plen
+        self.prefill_tokens += plen
+        self._emit_seed(req, logits, first)
+        return True
+
+    # -- preemption ----------------------------------------------------------
+    def _victim_score(self, req: ServeRequest) -> tuple:
+        """Preemption priority, highest evicted first: anergic classes, then
+        classes over their latency budget, then the highest remembered cost,
+        then the latest arrival (the oldest resident always runs to
+        completion), then least progress / rid."""
+        over = 1.0 if self._over_budget_now(req) else 0.0
+        if self.admission is not None:
+            anergy = float(self.admission.anergy.level[req.rclass])
+            cost = self.admission.remembered_cost(req.rclass)
+        else:
+            anergy = cost = 0.0
+        return (anergy, over, cost, req.arrival, -len(req.out_tokens), req.rid)
+
+    def _pick_victim(self) -> Optional[int]:
+        best, best_score = None, None
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            score = self._victim_score(req)
+            if best_score is None or score > best_score:
+                best, best_score = slot, score
+        return best
+
+    def _free_slot(self, slot: int) -> None:
+        """Return ``slot`` to the pool: release its pages (refcount--) and
+        reset its decode state and sampling lane to the free-slot argmax row."""
+        self.slots[slot] = None
+        model.release_slot_cache_paged(self.pool, self.cfg, slot)
+        self.active[slot] = False
+        self.alloc.release(slot)
+        self.active_host[slot] = False
+        self.pos_host[slot] = 0
+        self.emitted[slot] = 0
+        self.samp_temp[slot] = 0.0
+        self.samp_topk[slot] = 0
+        self.samp_topp[slot] = 1.0
+        self.samp_rep[slot] = 1.0
+        self.samp_pres[slot] = 0.0
+        self.samp_freq[slot] = 0.0
+        self.tok_counts[slot] = 0
+        self._spec_cache = None
+
+    def _preempt(self, slot: int) -> None:
+        """Evict ``slot``'s request: drop its pages and any in-flight prefill
+        job, and re-queue it at the front for exact re-entry."""
+        req = self.slots[slot]
+        self.jobs = deque(j for j in self.jobs if j.slot != slot)
+        self._free_slot(slot)
+        req.slot = -1
+        req.preemptions += 1
+        req.preempt_tick = self.tick
+        self.preemptions += 1
+        self.preempted_rids.add(req.rid)
+        self.queue.appendleft(req)
+
+    def _acquire(self, slot: int, npages: int) -> bool:
+        """Grow ``slot`` to ``npages``, resolving page exhaustion by
+        preemption. Returns False when the slot's own request was the
+        lowest-priority resident and preempted itself."""
+        if self.ecfg.admission_mode == "reserve":
+            self.alloc.ensure(slot, npages)
+            return True
+        while True:
+            try:
+                self.alloc.ensure(slot, npages)
+                return True
+            except OutOfPages:
+                victim = self._pick_victim()
+                if victim is None or victim == slot:
+                    self._preempt(slot)
+                    return False
+                self._preempt(victim)
+
+    def _admit(self):
+        self._admitted_this_tick = 0
+        self._decoding_before_admit = any(r is not None for r in self.slots)
+        free = [i for i, r in enumerate(self.slots) if r is None]
+        if not free or not self.queue:
+            return
+        if self.admission is None:                      # FIFO baseline
+            while free and self.queue:
+                if not self._admit_into(self.queue[0], free[0]):
+                    break     # strict FIFO: an unfit head blocks the line
+                self.queue.popleft()
+                free.pop(0)
+            return
+        adm = self.admission
+        # tolerance turned shedding: anergic classes are rejected outright
+        for req in [r for r in self.queue if not adm.admissible(r.rclass)]:
+            self.queue.remove(req)
+            req.finish_reason = "shed"
+            self.shed.append(req)
+            req.finish_tick = self.tick
+            req.finish_time = time.perf_counter()
+        if adm.throttled():                             # delayed suppression
+            return
+        # anticipation: order by remembered class cost; a candidate the pool
+        # cannot hold yet is skipped (deferred), never blocking smaller ones
+        cost = self._predicted_costs()
+        candidates = sorted(self.queue,
+                            key=lambda r: (cost[r.rclass], r.arrival, r.rid))
+        for req in candidates:
+            if not free:
+                break
+            if not self._admit_into(req, free[0]):
+                continue
+            self.queue.remove(req)
+            free.pop(0)
+
+    def _predicted_costs(self) -> np.ndarray:
+        """Per-class cost estimate: the EMA memory, floored by the ticks
+        running requests have already held."""
+        cost = self.admission.memory.value.numpy().astype(np.float64)
+        for r in self.slots:
+            if r is not None:
+                cost[r.rclass] = max(cost[r.rclass], self.tick - r.admit_tick)
+        return cost
+
+    # -- chunked prefill ------------------------------------------------------
+    def _finish_job(self, job: _PrefillJob, logits):
+        """Final chunk landed: draw the first token, activate the slot, and
+        register a sharable prompt's full pages in the prefix index."""
+        first = self._seed_slot(job.req, logits)
+        self.pool["pos"][job.slot] = job.length
+        self.last[job.slot] = first[0]
+        self.active[job.slot] = True
+        self.active_host[job.slot] = True
+        self.pos_host[job.slot] = job.length
+        self.emitted[job.slot] = 1
+        self._emit_seed(job.req, logits, first)
+        if job.share:
+            self.alloc.register_prefix(job.slot, job.req.tokens,
+                                       rclass=job.req.rclass)
+
+    def _prefill_tick(self):
+        """Land one chunk of up to ``prefill_streams`` front prefill jobs
+        (one batched call), while the other slots keep decoding."""
+        if not self.jobs:
+            return
+        c, page = self.ecfg.prefill_chunk, self.ecfg.page_size
+        if self._multi_prefill:
+            j = self.ecfg.prefill_streams
+            take: list[_PrefillJob] = []
+            while self.jobs and len(take) < j:
+                job = self.jobs.popleft()
+                if not self._acquire(job.slot, pages_for(job.p0 + c, page)):
+                    continue          # the job's own request self-preempted
+                take = [t for t in take if self.slots[t.slot] is t.req]
+                take.append(job)
+            if not take:
+                return
+            toks = np.zeros((j, c), np.int64)
+            tables = np.zeros((j, self.maxp), np.int32)   # padding lanes: null
+            p0s = np.zeros((j,), np.int64)
+            last_idxs = np.zeros((j,), np.int64)
+            for lane, job in enumerate(take):
+                seg = job.req.tokens[job.p0:min(job.p0 + c,
+                                                len(job.req.tokens))]
+                toks[lane, :len(seg)] = seg
+                p0s[lane] = job.p0
+                last_idxs[lane] = min(max(job.length - 1 - job.p0, 0), c - 1)
+                job.req.prefill_tokens += len(seg)
+                self.prefill_tokens += len(seg)
+            tbl = self.alloc.table()
+            for lane, job in enumerate(take):
+                tables[lane] = tbl[job.slot]
+            logits_j, self.pool = model.prefill_chunk_multi(
+                self.params, self.cfg, {"tokens": self._dev(toks)}, self.pool,
+                self._dev(tables), self._dev(p0s), self._dev(last_idxs))
+            self.chunked_prefill_chunks += len(take)
+            self.prefill_batch_calls += 1
+            unfinished = []
+            for lane, job in enumerate(take):
+                job.p0 += c
+                if job.p0 >= job.total:
+                    self._finish_job(job, logits_j[lane:lane + 1])
+                else:
+                    unfinished.append(job)
+            for job in reversed(unfinished):      # keep front-of-queue order
+                self.jobs.appendleft(job)
+            return
+        job = self.jobs[0]
+        end = job.p0 + c
+        if not self._acquire(job.slot, pages_for(end, page)):
+            return                    # the job's request was requeued
+        toks = np.zeros((c,), np.int64)
+        seg = job.req.tokens[job.p0:min(end, len(job.req.tokens))]
+        toks[:len(seg)] = seg
+        job.req.prefill_tokens += len(seg)
+        self.prefill_tokens += len(seg)
+        last_idx = min(max(job.length - 1 - job.p0, 0), c - 1)
+        logits, self.pool = model.prefill_chunk(
+            self.params, self.cfg, {"tokens": self._dev(toks)[None]},
+            self.pool, self._table_row(job.slot), job.p0, last_idx)
+        self.chunked_prefill_chunks += 1
+        job.p0 = end
+        if end >= job.total:
+            self.jobs.popleft()
+            self._finish_job(job, logits)
+
+    # -- retirement ----------------------------------------------------------
+    def _slo(self, req: ServeRequest) -> tuple:
+        """``(latency, bar)`` in ONE unit: a declared ``deadline`` is judged
+        against wall-clock latency, otherwise tick latency against the
+        engine's tick budget."""
+        if req.deadline is not None and req.wall_latency_s is not None:
+            return req.wall_latency_s, float(req.deadline)
+        return float(req.latency), float(self.ecfg.latency_budget)
+
+    def _met_budget(self, req: ServeRequest) -> bool:
+        lat, bar = self._slo(req)
+        return lat <= bar
+
+    def _over_budget_now(self, req: ServeRequest) -> bool:
+        """Mid-flight over-budget signal (victim scoring), same units."""
+        if req.deadline is not None:
+            return req.submit_time >= 0 and \
+                time.perf_counter() - req.submit_time > req.deadline
+        return (self.tick - req.arrival) > self.ecfg.latency_budget
+
+    def _finished(self, req: ServeRequest) -> bool:
+        """Stop token (kept) or token budget; records ``finish_reason``."""
+        p = req.params
+        if p.stop and req.out_tokens and req.out_tokens[-1] in p.stop:
+            req.finish_reason = "stop"
+            return True
+        if len(req.out_tokens) >= p.max_new_tokens:
+            req.finish_reason = "length"
+            return True
+        return False
+
+    def _retire(self):
+        for slot, req in enumerate(self.slots):
+            if req is None or not self.active_host[slot] \
+                    or not self._finished(req):
+                continue
+            req.finish_tick = self.tick
+            req.finish_time = time.perf_counter()
+            self.completed.append(req)
+            self._free_slot(slot)
+            if self.admission is not None:
+                # cost = slot-ticks consumed, replayed tokens included
+                lat, bar = self._slo(req)
+                self.admission.observe_completion(
+                    req.rclass,
+                    cost=float(len(req.out_tokens) + req.replayed_tokens),
+                    latency=lat, budget=bar)
+
+    def _retire_corrupted(self, slot: int) -> None:
+        """Retire a lane whose decode logits came back non-finite (no cost
+        observation: corruption is not a workload signal)."""
+        req = self.slots[slot]
+        req.finish_reason = "corrupted"
+        req.finish_tick = self.tick
+        req.finish_time = time.perf_counter()
+        self.corrupted.append(req)
+        self._free_slot(slot)
+
+    # -- decode ticks --------------------------------------------------------
+    def _plain_step(self, do_sample: bool, use_penalties: bool,
+                    want_lp: bool, want_k: int) -> None:
+        """One decode tick: one token for every active slot."""
+        t0 = time.perf_counter()
+        counts = self._dev(self.emitted, torch.int64)
+        spec = self._pool_spec() if do_sample else self._null_spec
+        pen = self._dev(self.tok_counts) if use_penalties else None
+        nxt, self.last, self.pool, ok, logits, lps, topk = _decode_tick(
+            self.params, self.cfg, self.pool, self.last, self.active,
+            self._dev(self.alloc.table()), spec, counts, pen,
+            attn_backend=self.ecfg.attn_backend, do_sample=do_sample,
+            return_logits=self.ecfg.capture_logits, return_logprobs=want_lp,
+            use_penalties=use_penalties, return_topk=want_k)
+        nxt_host = nxt[:, 0].cpu().numpy()
+        ok_host = ok.cpu().numpy()
+        lg_host = logits[:, -1].cpu().numpy() if logits is not None else None
+        lp_host = lps[:, 0].cpu().numpy() if lps is not None else None
+        tv_host, ti_host = (topk[0].cpu().numpy(), topk[1].cpu().numpy()) \
+            if topk is not None else (None, None)
+        self.decode_ticks += 1
+        self.decode_seconds += time.perf_counter() - t0
+        bad: list[int] = []
+        for slot, req in enumerate(self.slots):
+            if req is None or not self.active_host[slot] \
+                    or self._finished(req):
+                continue
+            if not ok_host[slot]:
+                bad.append(slot)    # poisoned lane: token is garbage
+                continue
+            if self.emitted[slot] >= len(req.out_tokens):
+                req.out_tokens.append(int(nxt_host[slot]))
+                if lg_host is not None:
+                    req.out_logits.append(lg_host[slot].copy())
+                if lp_host is not None and req.params.logprobs:
+                    req.out_logprobs.append(float(lp_host[slot]))
+                if tv_host is not None and req.params.logprobs:
+                    k = req.params.logprobs
+                    req.out_topk.append(
+                        ([int(x) for x in ti_host[slot][:k]],
+                         [float(x) for x in tv_host[slot][:k]]))
+            else:
+                self.replayed_tokens += 1   # replaying recorded history
+                req.replayed_tokens += 1
+            if req.params.has_penalties:
+                self.tok_counts[slot, int(nxt_host[slot])] += 1
+            self.emitted[slot] += 1
+        self.pos_host[self.active_host] += 1
+        for slot in bad:
+            self._retire_corrupted(slot)
+
+    # -- one tick ------------------------------------------------------------
+    def step(self):
+        """One engine tick: admit into free slots, land a prefill chunk,
+        decode one token for every active slot, retire finished sequences,
+        advance the immune states."""
+        self._admit()
+        self._prefill_tick()
+        self.concurrency_hw = max(self.concurrency_hw,
+                                  sum(r is not None for r in self.slots))
+        use_penalties = any(r is not None and r.params.has_penalties
+                            for r in self.slots)
+        do_sample = use_penalties or any(
+            r is not None and not r.params.is_greedy for r in self.slots)
+        want_lp = any(r is not None and r.params.logprobs
+                      for r in self.slots)
+        want_k = max((r.params.logprobs for r in self.slots
+                      if r is not None), default=0)
+        page = self.ecfg.page_size
+        for slot in np.flatnonzero(self.active_host):
+            slot = int(slot)
+            if not self.active_host[slot]:
+                continue              # preempted by an earlier slot's growth
+            # decode writes at pos: append a page at the boundary, preempting
+            # the lowest-priority resident if the pool is dry
+            cover = min(int(self.pos_host[slot]) + 1, self.ecfg.max_cache)
+            self._acquire(slot, pages_for(cover, page))
+        if self.active_host.any():
+            self._plain_step(do_sample, use_penalties, want_lp, want_k)
+        self._retire()
+        if self.admission is not None:
+            demand = np.zeros(self.ecfg.num_classes, np.float64)
+            for r in self.queue:
+                demand[r.rclass] += 1.0
+            self.admission.end_tick(self._admitted_this_tick, len(self.queue),
+                                    demand, self._predicted_costs())
+        self.tick += 1
+
+    # -- open-loop serving ---------------------------------------------------
+    def _output_for(self, req: ServeRequest, tick: int, new_tokens: list,
+                    finished: bool,
+                    reason: Optional[str] = None) -> RequestOutput:
+        done = finished and reason is None
+        new_lp = full_lp = topk = None
+        if req.params.logprobs:
+            n = len(req.out_tokens)
+            new_lp = list(req.out_logprobs[n - len(new_tokens):n])
+            full_lp = list(req.out_logprobs)
+            topk = list(req.out_topk)
+        return RequestOutput(
+            rid=req.rid, new_tokens=new_tokens, tokens=list(req.out_tokens),
+            finished=finished,
+            finish_reason=reason if reason is not None
+            else (req.finish_reason if done else None),
+            tick=tick, arrival=req.arrival, admit_tick=req.admit_tick,
+            finish_tick=req.finish_tick,
+            latency_ticks=req.latency if done else None,
+            wall_latency_s=req.wall_latency_s if done else None,
+            deadline_met=self._met_budget(req) if done else None,
+            new_logprobs=new_lp, logprobs=full_lp, top_logprobs=topk,
+            preemptions=req.preemptions, requeue_ticks=req.requeue_ticks)
+
+    def stream(self, requests: Optional[list] = None,
+               max_ticks: int = 10_000) -> Iterator[RequestOutput]:
+        """Open-loop drive as an iterator: submit each request at its
+        ``arrival`` tick, step until everything completes (or
+        ``max_ticks``), and yield a ``RequestOutput`` per request per tick of
+        progress (``new_tokens`` = the delta since its previous output).
+        Refusals ("rejected" / "shed" / "corrupted") are reported too, and
+        requests still held when the backstop fires get a final
+        ``finish_reason="timeout"`` output with ``finished=False``."""
+        pending = sorted(requests or [], key=lambda r: (r.arrival, r.rid))
+        i = 0
+        sent: dict = {}                      # rid -> tokens already yielded
+        while True:
+            while i < len(pending) and pending[i].arrival <= self.tick:
+                self.submit(pending[i])
+                i += 1
+            self.unsubmitted = len(pending) - i
+            t = self.tick
+            for req in self.rejected[self._reported_rejected:]:
+                yield self._output_for(req, t, [], True, reason="rejected")
+            self._reported_rejected = len(self.rejected)
+            drained = (i == len(pending) and not self.queue
+                       and all(r is None for r in self.slots))
+            if drained or t >= max_ticks:
+                if not drained:              # backstop: account for the rest
+                    live = [r for r in self.slots if r is not None]
+                    for req in live + list(self.queue):
+                        k = sent.get(req.rid, 0)
+                        yield self._output_for(
+                            req, t, list(req.out_tokens[k:]), False,
+                            reason="timeout")
+                break
+            ndone = len(self.completed)
+            self.step()
+            for req in self.shed[self._reported_shed:]:
+                yield self._output_for(req, t, [], True, reason="shed")
+            self._reported_shed = len(self.shed)
+            for req in self.corrupted[self._reported_corrupted:]:
+                yield self._output_for(req, t, [], True, reason="corrupted")
+            self._reported_corrupted = len(self.corrupted)
+            live = [r for r in self.slots if r is not None]
+            for req in live + self.completed[ndone:]:
+                n = len(req.out_tokens)
+                k = sent.get(req.rid, 0)
+                finished = req.finish_tick == t
+                if n == k and not finished:
+                    continue
+                sent[req.rid] = n
+                yield self._output_for(req, t, list(req.out_tokens[k:n]),
+                                       finished)
+
+    def run(self, requests: list, max_ticks: int = 10_000) -> dict:
+        """``stream()`` with the outputs discarded; returns ``stats()``."""
+        for _ in self.stream(requests, max_ticks=max_ticks):
+            pass
+        return self.stats()
+
+    def stats(self) -> dict:
+        lat = np.asarray([r.latency for r in self.completed], np.float64)
+        wall = np.asarray([r.wall_latency_s for r in self.completed
+                           if r.wall_latency_s is not None], np.float64) * 1e3
+        toks = int(sum(len(r.out_tokens) for r in self.completed))
+        in_budget = sum(1 for r in self.completed if self._met_budget(r))
+        in_flight = sum(r is not None for r in self.slots)
+        # every request the trace produced, wherever it ended up: the goodput
+        # denominator
+        demand = (len(self.completed) + len(self.shed) + len(self.rejected)
+                  + len(self.corrupted) + len(self.queue) + in_flight
+                  + self.unsubmitted)
+        empty = float("inf")
+        return {
+            "policy": self.ecfg.policy,
+            "ticks": self.tick,
+            "completed": len(self.completed),
+            "shed": len(self.shed),
+            "rejected": len(self.rejected),
+            "corrupted": len(self.corrupted),
+            "unserved": len(self.queue) + in_flight + self.unsubmitted,
+            "tokens": toks,
+            "throughput": toks / max(self.tick, 1),
+            "p50_latency": float(np.percentile(lat, 50)) if lat.size else empty,
+            "p99_latency": float(np.percentile(lat, 99)) if lat.size else empty,
+            "max_latency": float(lat.max()) if lat.size else empty,
+            "goodput": in_budget / max(demand, 1),
+            "mid_stream_admissions": self.mid_stream_admissions,
+            "page_size": self.ecfg.page_size,
+            "pages_budget": self.alloc.usable_pages,
+            "pages_in_use": self.alloc.pages_in_use,
+            "pages_hw": self.alloc.high_water,
+            "concurrency_hw": self.concurrency_hw,
+            "chunked_prefill_chunks": self.chunked_prefill_chunks,
+            "prefill_batch_calls": self.prefill_batch_calls,
+            "attn_backend": self.ecfg.attn_backend,
+            "prefix_sharing": bool(self.ecfg.prefix_sharing),
+            "shared_pages_adopted": self.shared_pages_adopted,
+            "cow_forks": self.alloc.cow_forks,
+            "prefill_positions_skipped": self.prefill_positions_skipped,
+            "prefix_hit_rate": self.shared_pages_adopted
+            / max(self.sharable_prompt_pages, 1),
+            "prefill_tokens": self.prefill_tokens,
+            "nowrite_adoptions": self.nowrite_adoptions,
+            "admission_mode": self.ecfg.admission_mode,
+            "pin_pages": self.alloc.pin_pages,
+            "pages_pinned": self.alloc.pages_pinned,
+            "pins": self.alloc.pins,
+            "pinned_pages_adopted": self.alloc.pinned_hits,
+            "pin_evictions": self.alloc.evictions,
+            "pinned_hit_rate": self.alloc.pinned_hits
+            / max(self.sharable_prompt_pages, 1),
+            "preemptions": self.preemptions,
+            "preempted_requests": len(self.preempted_rids),
+            "replayed_tokens": self.replayed_tokens,
+            "p50_wall_ms": float(np.percentile(wall, 50)) if wall.size
+            else empty,
+            "p99_wall_ms": float(np.percentile(wall, 99)) if wall.size
+            else empty,
+            "sampled_requests": sum(1 for r in self.completed
+                                    if not r.params.is_greedy),
+            "deadline_requests": sum(1 for r in self.completed
+                                     if r.deadline is not None),
+            "penalized_requests": sum(1 for r in self.completed
+                                      if r.params.has_penalties),
+            # port instrumentation: kernel launch accounting + decode timing
+            "prefills": self.prefills,
+            "decode_ticks": self.decode_ticks,
+            "decode_seconds": self.decode_seconds,
+        }

@@ -1,0 +1,103 @@
+"""Card-only tests of the port: each CUDA kernel against its plain version,
+and the engine on the card against its own one-shot oracle.
+
+Marked ``cuda``; each test decides inside itself whether a card is visible
+and skips otherwise (never at import time). This file imports no JAX, so it
+also runs on the machine with the card:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_ref)
+from repro_torch.models import model
+from repro_torch.serve import api, traces
+from repro_torch.serve import engine as eng_mod
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _paged_inputs(seed, b, h, hk, d, page, maxp, dtype, device):
+    rng = np.random.default_rng(seed)
+    num_pages = b * maxp + 1
+    q = torch.as_tensor(rng.standard_normal((b, h, d)), dtype=torch.float32)
+    kp = torch.as_tensor(rng.standard_normal((num_pages, page, hk, d)),
+                         dtype=torch.float32)
+    vp = torch.as_tensor(rng.standard_normal((num_pages, page, hk, d)),
+                         dtype=torch.float32)
+    kp[0], vp[0] = 1e4, -1e4
+    lengths = rng.integers(1, maxp * page + 1, size=b).astype(np.int32)
+    free = list(rng.permutation(np.arange(1, num_pages)))
+    table = np.zeros((b, maxp), np.int32)
+    for i in range(b):
+        for j in range(-(-int(lengths[i]) // page)):
+            table[i, j] = free.pop()
+    return (q.to(device, dtype), kp.to(device, dtype), vp.to(device, dtype),
+            torch.as_tensor(table, device=device),
+            torch.as_tensor(lengths, device=device))
+
+
+@pytest.mark.parametrize("b,h,hk,d", [(3, 4, 4, 64), (8, 15, 5, 64),
+                                      (2, 8, 1, 128), (2, 4, 2, 16)])
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+def test_paged_kernel_matches_plain(card, b, h, hk, d, page, dtype, tol):
+    args = _paged_inputs(b + page, b, h, hk, d, page, 6, dtype, card)
+    n0 = paged_attention.launches
+    out = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == n0 + 1
+    ref = paged_attention_ref(*args)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("s", [1, 17, 128, 383])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 5e-2)])
+def test_flash_kernel_matches_plain(card, s, causal, dtype, tol):
+    g = torch.Generator(device=card).manual_seed(s)
+    q = torch.randn(1, 15, s, 64, generator=g, device=card).to(dtype)
+    k = torch.randn(1, 5, s, 64, generator=g, device=card).to(dtype)
+    v = torch.randn(1, 5, s, 64, generator=g, device=card).to(dtype)
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    ref = attention_ref(q, k, v, causal=causal)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_engine_on_card_matches_oneshot(card):
+    """Smoke-size fp32 engine with the kernels on the card emits exactly the
+    one-shot ``generate`` tokens, greedy and seeded."""
+    cfg = configs.get_config("smollm-360m").smoke()
+    params = model.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                               device=card)
+    trace = traces.synthetic_trace(cfg, num_requests=6, temperature=0.8,
+                                   sample_seed=3)
+    eng = eng_mod.Engine(params, cfg,
+                         eng_mod.EngineConfig(num_slots=3, max_cache=96),
+                         device=card)
+    eng.run(trace, max_ticks=400)
+    assert len(eng.completed) == len(trace)
+    for req in eng.completed:
+        probe = api.ServeRequest(rid=req.rid, tokens=req.tokens,
+                                 params=req.params)
+        assert api.generate(params, cfg, probe, max_cache=96).tokens \
+            == req.out_tokens

@@ -1,0 +1,176 @@
+"""The port's kernel packages on the CPU: each kernel's plain PyTorch version
+against the JAX package's Pallas kernel (interpret mode) and its jnp oracle,
+and the wrappers' contract checks and CPU dispatch.
+
+Inputs are drawn with numpy from a seed and handed to both packages.
+Tolerances (as in tests/test_kernels.py): paged 1e-5 fp32, flash 5e-5 fp32,
+5e-2 bf16. The CUDA kernels themselves run only on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import attention_ref as jax_attention_ref
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.paged_attention import paged_attention as jax_paged
+from repro.kernels.paged_attention import paged_attention_ref as jax_paged_ref
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_ref)
+
+# smoke-size ops: one intra-op thread per test worker (the suite runs
+# several workers; torch's default of one thread per core oversubscribes)
+torch.set_num_threads(1)
+
+jax.config.update("jax_platform_name", "cpu")
+
+
+def paged_fixture(seed, b, h, hk, d, page, maxp):
+    """Random pools, a valid block table with ragged per-row page counts and
+    a +-1e4 null page (never read live)."""
+    rng = np.random.default_rng(seed)
+    num_pages = b * maxp + 1
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    kp = rng.standard_normal((num_pages, page, hk, d)).astype(np.float32)
+    vp = rng.standard_normal((num_pages, page, hk, d)).astype(np.float32)
+    kp[0], vp[0] = 1e4, -1e4
+    lengths = rng.integers(1, maxp * page + 1, size=b).astype(np.int32)
+    free = list(rng.permutation(np.arange(1, num_pages)))
+    table = np.zeros((b, maxp), np.int32)
+    for i in range(b):
+        for j in range(-(-int(lengths[i]) // page)):
+            table[i, j] = free.pop()
+    return q, kp, vp, table, lengths
+
+
+def _t(*arrays):
+    return [torch.as_tensor(a) for a in arrays]
+
+
+@pytest.mark.parametrize("b,h,hk,d", [
+    (3, 4, 4, 32),      # MHA
+    (2, 8, 2, 64),      # GQA 4:1
+    (2, 15, 5, 64),     # GQA 3:1 (smollm-360m's ratio)
+    (2, 8, 1, 128),     # MQA
+])
+@pytest.mark.parametrize("page,maxp", [(8, 4), (16, 3)])
+def test_paged_plain_matches_jax(b, h, hk, d, page, maxp):
+    """fp32, tolerance 1e-5 against both the interpret-mode Pallas kernel and
+    the JAX oracle."""
+    arrs = paged_fixture(b * 10 + page, b, h, hk, d, page, maxp)
+    out = paged_attention_ref(*_t(*arrs)).numpy()
+    jarrs = [jnp.asarray(a) for a in arrs]
+    np.testing.assert_allclose(out, np.asarray(jax_paged_ref(*jarrs)),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out, np.asarray(jax_paged(*jarrs,
+                                                         interpret=True)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_paged_plain_bf16_matches_jax():
+    """bf16 inputs, fp32 math: tolerance 5e-2."""
+    q, kp, vp, table, lengths = paged_fixture(3, 2, 8, 2, 64, 8, 4)
+    kp[0], vp[0] = 0.0, 0.0
+    tq, tk, tv = (torch.as_tensor(a).to(torch.bfloat16) for a in (q, kp, vp))
+    out = paged_attention_ref(tq, tk, tv, torch.as_tensor(table),
+                              torch.as_tensor(lengths)).float().numpy()
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, kp, vp))
+    ref = jax_paged_ref(jq, jk, jv, jnp.asarray(table), jnp.asarray(lengths))
+    np.testing.assert_allclose(out, np.asarray(ref.astype(jnp.float32)),
+                               rtol=5e-2, atol=5e-2)
+
+
+def test_paged_ignores_dirty_null_page():
+    """Unmapped table entries point at page 0; its contents never leak."""
+    q, kp, vp, table, lengths = paged_fixture(5, 2, 4, 2, 32, 8, 3)
+    dirty = paged_attention(*_t(q, kp, vp, table, lengths))
+    kp[0], vp[0] = 0.0, 0.0
+    clean = paged_attention(*_t(q, kp, vp, table, lengths))
+    assert torch.equal(dirty, clean)
+
+
+@pytest.mark.parametrize("b,h,hk,s,d", [
+    (2, 4, 2, 256, 64),     # GQA, whole 128-blocks
+    (1, 15, 5, 128, 64),    # smollm-360m width
+    (1, 8, 1, 384, 128),    # MQA, 3 x 128 blocks
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_jax_kernel(b, h, hk, s, d, causal):
+    """fp32 against the interpret-mode Pallas kernel (whose S must be a
+    multiple of its block): tolerance 5e-5."""
+    rng = np.random.default_rng(s + h)
+    q = rng.standard_normal((b, h, s, d)).astype(np.float32)
+    k = rng.standard_normal((b, hk, s, d)).astype(np.float32)
+    v = rng.standard_normal((b, hk, s, d)).astype(np.float32)
+    out = attention_ref(*_t(q, k, v), causal=causal).numpy()
+    ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    causal=causal, bq=64, bkv=128, interpret=True)
+    np.testing.assert_allclose(out, np.asarray(ref), rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.parametrize("s", [1, 17, 100, 383])
+@pytest.mark.parametrize("dtype,tol", [("float32", 5e-5), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_ragged_matches_jax_ref(s, dtype, tol, causal):
+    """Engine prompts have any length: ragged S against the JAX oracle."""
+    rng = np.random.default_rng(s)
+    q = rng.standard_normal((1, 15, s, 64)).astype(np.float32)
+    k = rng.standard_normal((1, 5, s, 64)).astype(np.float32)
+    v = rng.standard_normal((1, 5, s, 64)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    out = attention_ref(*(torch.as_tensor(a).to(tdt) for a in (q, k, v)),
+                        causal=causal).float().numpy()
+    jdt = getattr(jnp, dtype)
+    ref = jax_attention_ref(*(jnp.asarray(a).astype(jdt) for a in (q, k, v)),
+                            causal=causal)
+    np.testing.assert_allclose(out, np.asarray(ref.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+class TestWrappers:
+    """CPU tensors take the plain version (no launch counted); the kernel
+    contract is checked on every call."""
+
+    def test_cpu_dispatch_counts_no_launch(self):
+        q, kp, vp, table, lengths = _t(*paged_fixture(0, 2, 4, 2, 32, 8, 3))
+        n0 = paged_attention.launches
+        assert torch.equal(paged_attention(q, kp, vp, table, lengths),
+                           paged_attention_ref(q, kp, vp, table, lengths))
+        assert paged_attention.launches == n0
+        x = torch.randn(1, 4, 9, 32)
+        y = torch.randn(1, 2, 9, 32)
+        f0 = flash_attention.launches
+        assert torch.equal(flash_attention(x, y, y), attention_ref(x, y, y))
+        assert flash_attention.launches == f0
+
+    def test_paged_rejects_what_the_kernel_cannot_take(self):
+        q, kp, vp, table, lengths = _t(*paged_fixture(0, 2, 4, 2, 32, 8, 3))
+        with pytest.raises(TypeError):
+            paged_attention(q.half(), kp.half(), vp.half(), table, lengths)
+        with pytest.raises(ValueError, match="int32"):
+            paged_attention(q, kp, vp, table.long(), lengths)
+        with pytest.raises(ValueError, match="head dim"):
+            paged_attention(q[..., :24].contiguous(), kp[..., :24].contiguous(),
+                            vp[..., :24].contiguous(), table, lengths)
+        with pytest.raises(ValueError, match="contiguous"):
+            paged_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
+                            kp, vp, table, lengths)
+        with pytest.raises(ValueError, match="device"):
+            paged_attention(q.to("meta"), kp, vp, table, lengths)
+
+    def test_flash_rejects_what_the_kernel_cannot_take(self):
+        x = torch.randn(1, 4, 9, 32)
+        y = torch.randn(1, 2, 9, 32)
+        with pytest.raises(TypeError):
+            flash_attention(x.half(), y.half(), y.half())
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention(torch.randn(1, 4, 9, 24), torch.randn(1, 2, 9, 24),
+                            torch.randn(1, 2, 9, 24))
+        with pytest.raises(ValueError, match="contiguous"):
+            flash_attention(x.transpose(2, 3).contiguous().transpose(2, 3),
+                            y, y)
+        with pytest.raises(ValueError, match="device"):
+            flash_attention(x.to("meta"), y, y)
