@@ -9,12 +9,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    of every CUDA kernel from ``src/repro_torch/kernels/csrc``.
 2. Kernels: each kernel held against its plain PyTorch version on the card —
    paged decode at smollm-360m width (Hkv=5, G=3, D=64, page=16; fp32 and
-   bf16; ragged lengths; a +-1e4 null page) plus MHA and MQA cases, flash
-   attention at H=15, Hkv=5, D=64 for S in {1, 17, 128, 383, 1000}, causal
-   and not. Tolerances: 1e-5 (paged) / 5e-5 (flash) in fp32, 5e-2 in bf16.
-   Then each kernel, its plain version and (flash only) PyTorch's SDPA are
-   timed with CUDA events at main-path shapes, beside the bound from the
-   bytes and flops those shapes need.
+   bf16; ragged lengths; a +-1e4 null page) plus MHA and MQA cases; the
+   paged verify step at the same width for Sq in {1, 2, 5, 7} with ragged
+   first positions (page boundaries, rows past the table's capacity), plus
+   MHA and MQA, and at Sq = 1 bitwise the decode kernel at lengths = pos + 1;
+   flash attention at H=15, Hkv=5, D=64 for S in {1, 17, 128, 383, 1000},
+   causal and not. Tolerances: 1e-5 (paged, verify) / 5e-5 (flash) in fp32,
+   5e-2 in bf16. Then each kernel, its plain version and (flash only)
+   PyTorch's SDPA are timed with CUDA events at main-path shapes, beside the
+   bound from the bytes and flops those shapes need (verify: B=8, Sq=5 at
+   the spec trace's positions; no single PyTorch call gathers pages, so
+   paged decode and verify have no library time).
 3. Engine: smollm-360m at its full published config (32 layers, d_model
    960, 15/5 heads, head_dim 64, d_ff 2560, vocab 49,152, bf16; random
    weights from ``--seed``) serves 16 requests of ``synthetic_trace``
@@ -32,6 +37,26 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    eight slots busy (device time by kernel, the device's idle share). A
    smoke-size fp32 engine must also emit exactly its one-shot ``generate``
    tokens.
+4. Speculative decoding: full-width smollm-360m (bf16, ``--seed`` weights)
+   made draft-friendly at depth 8 serves a 12-request ``agentic_trace``
+   (4 sessions x 3 turns, 32 / 64 new tokens, greedy) on 8 slots with
+   chunked prefill (16) and prefix sharing, once with ``spec_decode=4,
+   spec_draft_layers=8`` and once without, both on the kernel backend.
+   Every request must finish with its budget, spec ticks must run, the
+   verify kernel must have launched 32 x spec ticks and the decode kernel
+   32 x plain ticks + 8 x 4 x spec ticks, and the two runs' streams must
+   agree by the rule of phase 3 (bf16 rtol = atol = 1e-1; a divergence only
+   where the non-spec run's top-2 margin is below that tolerance).
+5. Slot groups: at full width, two parents on one 200-token prompt — one
+   ``n=2``, one ``best_of=3``, temperature 0.8, seeded — with chunked prefill
+   and prefix sharing. Each parent must assemble with its lanes in the
+   reference's rank order, shared prompt pages must be adopted, and each
+   lane must agree (same rule) with the same member served alone.
+   ``torch.profiler`` traces ten spec ticks and ten plain ticks with all
+   eight slots of the spec trace busy (one-shot prefill, 128 new tokens).
+
+Phases 3-5 each set every launch count to 0 just before they serve and read
+the counts just after. All phases run at full depth.
 
 The second-to-last lines are one JSON object ``{"kernels": [...]}`` and the
 ``nvidia-smi`` name/power line; the last line is
@@ -144,6 +169,61 @@ def check_paged(torch, gen, paged_attention, paged_attention_ref) -> list:
     return cases
 
 
+def verify_inputs(torch, gen, b, sq, h, hk, d, page, maxp, dtype, pos=None):
+    """Verify-step inputs: every page a row can reach is mapped; by default
+    ragged first positions with one lane at a page boundary and one whose
+    last rows run past the table's capacity; a +-1e4 null page."""
+    dev = "cuda"
+    num_pages = b * maxp + 1
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
+    kp = torch.randn(num_pages, page, hk, d, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(num_pages, page, hk, d, generator=gen, device=dev).to(dtype)
+    kp[0], vp[0] = 1e4, -1e4
+    if pos is None:
+        pos = torch.randint(0, maxp * page - sq + 1, (b,), generator=gen,
+                            device=dev).cpu()
+        pos[0] = page
+        pos[-1] = maxp * page - max(sq - 2, 1)
+    pos = torch.as_tensor(pos).to(torch.int32)
+    perm = (torch.randperm(num_pages - 1, generator=gen, device=dev) + 1).cpu()
+    table = torch.zeros(b, maxp, dtype=torch.int32)
+    n = 0
+    for i, p0 in enumerate(pos.tolist()):
+        npg = min(maxp, -(-(p0 + sq) // page))
+        table[i, :npg] = perm[n:n + npg].to(torch.int32)
+        n += npg
+    return q, kp, vp, table.to(dev), pos.to(dev)
+
+
+def check_verify(torch, gen, verify, verify_ref, paged_attention) -> list:
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for (b, h, hk, d, page, maxp) in [(8, 15, 5, 64, 16, 32),   # smollm
+                                          (3, 4, 4, 64, 8, 6),      # MHA
+                                          (2, 8, 1, 128, 16, 4)]:   # MQA
+            for sq in (1, 2, 5, 7):
+                q, kp, vp, table, pos = verify_inputs(
+                    torch, gen, b, sq, h, hk, d, page, maxp, dtype)
+                out = verify(q, kp, vp, table, pos)
+                torch.cuda.synchronize()
+                ref = verify_ref(q, kp, vp, table, pos)
+                err = (out.float() - ref.float()).abs().max().item()
+                check(err <= TOL["paged"][name],
+                      f"verify {name} {(b, sq, h, hk, d, page)} err {err}")
+                if sq == 1:
+                    dec = paged_attention(q[:, 0].contiguous(), kp, vp,
+                                          table, pos + 1)
+                    check(torch.equal(out[:, 0], dec),
+                          f"verify {name} Sq=1 differs from the decode kernel")
+                kp[0], vp[0] = 0.0, 0.0               # clean null page
+                check(torch.equal(verify(q, kp, vp, table, pos), out),
+                      f"verify {name}: null-page contents leaked")
+                cases.append({"shape": [b, sq, h, hk, d, page, maxp],
+                              "dtype": name, "max_abs_err": err})
+    return cases
+
+
 def check_flash(torch, gen, flash_attention, attention_ref) -> list:
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -196,6 +276,42 @@ def time_paged(torch, gen, paged_attention, paged_attention_ref) -> dict:
             "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
             "shape": {"B": b, "H": h, "Hkv": hk, "D": d, "page": page,
                       "maxp": maxp, "lengths": lengths, "dtype": "bfloat16"}}
+
+
+def time_verify(torch, gen, verify, verify_ref, positions: list) -> dict:
+    """Spec-tick verify shape: 8 slots, Sq = 5 (k = 4 drafts) at smollm width
+    over a 32-page table (max_cache 512), first positions from the spec
+    trace. Eight pool copies rotate so the pages come from HBM."""
+    b, sq, h, hk, d, page, maxp = 8, 5, 15, 5, 64, 16, 32
+    q, kp, vp, table, pos = verify_inputs(torch, gen, b, sq, h, hk, d, page,
+                                          maxp, torch.bfloat16, positions)
+    pools = [(kp.clone(), vp.clone()) for _ in range(8)]
+    it = iter(range(10 ** 9))
+
+    def kern():
+        k_, v_ = pools[next(it) % len(pools)]
+        verify(q, k_, v_, table, pos)
+
+    ms = cuda_ms(torch, kern)
+    plain_ms = cuda_ms(torch, lambda: verify_ref(q, kp, vp, table, pos),
+                       iters=20)
+    err = (verify(q, kp, vp, table, pos).float()
+           - verify_ref(q, kp, vp, table, pos).float()).abs().max().item()
+    es = 2
+    # each row r attends positions 0 .. pos + r (capped at the table)
+    live = sum(min(p0 + sq, maxp * page) for p0 in positions)
+    attended = sum(min(p0 + r + 1, maxp * page) for p0 in positions
+                   for r in range(sq))
+    nbytes = (2 * b * sq * h * d * es + 2 * live * hk * d * es
+              + table.numel() * 4 + b * 4)
+    flops = 4 * attended * h * d
+    bound_ms, by = bound(nbytes, flops, "bfloat16")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "library_note": "no single PyTorch call gathers pages",
+            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
+            "shape": {"B": b, "Sq": sq, "H": h, "Hkv": hk, "D": d,
+                      "page": page, "maxp": maxp, "pos": positions,
+                      "dtype": "bfloat16"}}
 
 
 def time_flash(torch, gen, flash_attention, attention_ref) -> dict:
@@ -260,19 +376,20 @@ def serve(torch, eng_mod, params, cfg, trace, backend: str):
     return eng, stats, time.perf_counter() - t0
 
 
-def profile_decode(torch, eng_mod, params, cfg, trace, ticks: int = 10) -> dict:
-    """Where a decode tick's time goes: fill all 8 slots from ``trace``,
-    warm up, then trace ``ticks`` decode ticks with ``torch.profiler``.
-    Device busy time is the sum of the kernels' and copies' device time
-    (one stream, so they do not overlap); the rest of the window's wall
-    time is the device's idle share."""
+def profile_decode(torch, eng_mod, params, cfg, reqs, ecfg,
+                   ticks: int = 10) -> dict:
+    """Where a decode tick's time goes: fill all 8 slots of an engine built
+    from ``ecfg`` with ``reqs``, warm up, then trace ``ticks`` ticks (plain
+    or spec, whichever ``ecfg`` runs) with ``torch.profiler``. Device busy
+    time is the sum of the kernels' and copies' device time (one stream, so
+    they do not overlap); the rest of the window's wall time is the device's
+    idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    eng = eng_mod.Engine(params, cfg, engine_config(eng_mod, "kernel",
-                                                    capture_logits=False),
-                         device="cuda")
-    for req in trace[:eng.ecfg.num_slots]:
-        eng.submit(dataclasses.replace(req, arrival=0))
+    eng = eng_mod.Engine(params, cfg, ecfg, device="cuda")
+    for req in reqs[:eng.ecfg.num_slots]:
+        eng.submit(dataclasses.replace(req, arrival=0, out_tokens=[],
+                                       out_logits=[]))
     for _ in range(3):
         eng.step()
     check(all(r is not None for r in eng.slots), "profile: slots not full")
@@ -284,17 +401,21 @@ def profile_decode(torch, eng_mod, params, cfg, trace, ticks: int = 10) -> dict:
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    check(all(r is not None for r in eng.slots),
+          "profile: a request finished inside the window")
     # device-side rows only: an operator's row repeats its kernels' time
     rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
             for ev in prof.key_averages()
             if ev.device_type != DeviceType.CPU and ev.self_device_time_total]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    paged = sum(r[0] for r in rows if "paged_decode_kernel" in r[2])
-    return {"ticks": ticks, "wall_ms_per_tick": wall_ms / ticks,
+    ours = {name: sum(r[0] for r in rows if name in r[2]) / ticks
+            for name in ("paged_decode_kernel", "paged_verify_kernel")}
+    return {"ticks": ticks, "spec_ticks": eng.spec_ticks,
+            "wall_ms_per_tick": wall_ms / ticks,
             "device_ms_per_tick": busy / ticks,
             "idle_share": 1.0 - busy / wall_ms if busy else None,
-            "paged_kernel_ms_per_tick": paged / ticks,
+            "kernel_ms_per_tick": ours,
             "top": [{"kernel": k[:80], "ms_per_tick": ms / ticks,
                      "calls_per_tick": n / ticks} for ms, n, k in rows[:8]]}
 
@@ -411,6 +532,177 @@ def smoke_oneshot_parity(torch, configs, model_lib, eng_mod, api, traces,
     return len(eng.completed)
 
 
+# ---------------------------------------------------------------------------
+# phases 4 and 5: speculative decoding and slot groups at full width
+# ---------------------------------------------------------------------------
+SPEC_K, SPEC_DEPTH = 4, 8
+
+
+def spec_trace(traces, cfg, seed: int):
+    """12 agentic requests: 4 sessions x 3 turns on 256-token conversations
+    grown by 32 / 64 tokens a turn, 32 / 64 new tokens, greedy."""
+    return traces.agentic_trace(cfg, sessions=4, turns=3, base_prompt=256,
+                                grow_lens=(32, 64), decode_lens=(32, 64),
+                                turn_gap=8, seed=seed)
+
+
+def spec_config(eng_mod, spec: bool, capture_logits: bool = True):
+    return eng_mod.EngineConfig(
+        num_slots=8, page_size=16, max_cache=512, prefill_chunk=16,
+        prefix_sharing=True, num_classes=3, latency_budget=512.0,
+        attn_backend="kernel", capture_logits=capture_logits,
+        spec_decode=SPEC_K if spec else 0,
+        spec_draft_layers=SPEC_DEPTH if spec else 0)
+
+
+def run_counted(torch, counters: dict, serve_fn):
+    """Call ``serve_fn`` with every launch count set to 0 just before and
+    read just after; returns (its result, wall seconds, {kernel:
+    launches})."""
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve_fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {name: fn.launches for name, fn in counters.items()}
+
+
+def run_summary(stats, wall: float) -> dict:
+    ticks = stats["decode_ticks"] + stats["spec_ticks"]
+    host = stats["decode_seconds"] + stats["spec_seconds"]
+    decode_tokens = stats["tokens"] - stats["completed"]   # seeds: prefill
+    return {"requests": stats["completed"], "tokens": stats["tokens"],
+            "wall_s": wall, "ticks": stats["ticks"],
+            "decode_ticks": stats["decode_ticks"],
+            "spec_ticks": stats["spec_ticks"],
+            "spec_accept_rate": stats["spec_accept_rate"],
+            "spec_emitted": stats["spec_emitted"],
+            "ms_per_tick": 1e3 * host / max(ticks, 1),
+            "ms_per_spec_tick": 1e3 * stats["spec_seconds"]
+            / max(stats["spec_ticks"], 1),
+            "decode_tok_per_s": decode_tokens / max(host, 1e-9),
+            "shared_pages_adopted": stats["shared_pages_adopted"],
+            "prefill_tokens": stats["prefill_tokens"]}
+
+
+def check_budgets(eng, what: str) -> None:
+    for req in eng.completed:
+        check(req.finish_reason == "length"
+              and len(req.out_tokens) == req.max_new_tokens,
+              f"{what}: request {req.rid} ended {req.finish_reason} after "
+              f"{len(req.out_tokens)}/{req.max_new_tokens} tokens")
+
+
+def spec_phase(torch, eng_mod, traces, model_lib, api, params, cfg,
+               seed: int, counters: dict) -> tuple[dict, int]:
+    """Phase 4; returns (report, verify launches on the spec run)."""
+    runs = {}
+    for spec in (True, False):
+        trace = spec_trace(traces, cfg, seed)
+        eng = eng_mod.Engine(params, cfg, spec_config(eng_mod, spec),
+                             device="cuda")
+        stats, wall, n = run_counted(
+            torch, counters, lambda: eng.run(trace, max_ticks=3000))
+        check(stats["completed"] == len(trace) and not stats["shed"]
+              and not stats["rejected"] and not stats["corrupted"],
+              f"spec={spec}: not every request completed: {stats}")
+        check_budgets(eng, f"spec={spec}")
+        runs[spec] = (eng, stats, wall, n)
+    eng, stats, wall, n = runs[True]
+    check(stats["spec_ticks"] > 0, "the spec run ran no spec tick")
+    check(n["paged_attention_verify"] == cfg.num_layers * stats["spec_ticks"],
+          f"verify launches {n['paged_attention_verify']} != "
+          f"{cfg.num_layers} x {stats['spec_ticks']} spec ticks")
+    want = cfg.num_layers * stats["decode_ticks"] \
+        + SPEC_DEPTH * SPEC_K * stats["spec_ticks"]
+    check(n["paged_attention"] == want,
+          f"spec run decode launches {n['paged_attention']} != {want}")
+    plain = runs[False]
+    check(plain[3]["paged_attention_verify"] == 0
+          and plain[3]["paged_attention"]
+          == cfg.num_layers * plain[1]["decode_ticks"],
+          f"non-spec run launches {plain[3]}")
+    agree = agreement(torch, model_lib, api, eng.completed,
+                      plain[0].completed, *BF16_TOL)
+    check(not agree["violations"], f"spec and non-spec streams disagree: "
+          f"{agree['first_violations']}")
+    report = {"spec": {**run_summary(stats, wall), "launches": n},
+              "non_spec": {**run_summary(plain[1], plain[2]),
+                           "launches": plain[3]},
+              "agreement": {**agree, "rtol": BF16_TOL[0],
+                            "atol": BF16_TOL[1]},
+              "k": SPEC_K, "draft_layers": SPEC_DEPTH}
+    return report, n["paged_attention_verify"]
+
+
+def group_phase(torch, eng_mod, groups, model_lib, api, params, cfg,
+                seed: int, counters: dict) -> dict:
+    """Phase 5: an n=2 and a best_of=3 parent on one prompt."""
+    rng = np.random.default_rng(seed + 5)
+    prompt = rng.integers(0, cfg.vocab_size, size=200).astype(np.int32)
+
+    def parents():
+        return [api.ServeRequest(rid=rid, tokens=prompt, arrival=rid,
+                                 params=api.SamplingParams(
+                                     temperature=0.8, seed=seed + 11 * rid,
+                                     max_new_tokens=32, **kw))
+                for rid, kw in ((0, dict(n=2)), (1, dict(n=1, best_of=3)))]
+
+    ecfg = spec_config(eng_mod, False)
+    eng = eng_mod.Engine(params, cfg, ecfg, device="cuda")
+    finals, wall, n = run_counted(
+        torch, counters, lambda: {o.rid: o for o in eng.stream(
+            parents(), max_ticks=2000) if o.finished})
+    stats = eng.stats()
+    check(stats["groups_submitted"] == 2
+          and stats["group_members_completed"] == 5,
+          f"groups: {stats['groups_submitted']} parents, "
+          f"{stats['group_members_completed']} members completed")
+    check_budgets(eng, "groups")
+    check(stats["shared_pages_adopted"] > 0, "no shared prompt page adopted")
+    check(n["paged_attention"] == cfg.num_layers * stats["decode_ticks"] > 0,
+          f"group run decode launches {n}")
+    members = {r.rid: r for r in eng.completed if r.group >= 0}
+    for parent in parents():
+        done = finals.get(parent.rid)
+        check(done is not None and done.finish_reason == "length",
+              f"parent {parent.rid} did not assemble")
+        lanes = sorted((r for r in members.values() if r.group == parent.rid),
+                       key=lambda r: r.lane)
+        order = groups.rank(lanes)
+        keep = order[:parent.params.n] if parent.params.best_of \
+            else sorted(order[:parent.params.n])
+        check([o.rid for o in done.group_outputs]
+              == [lanes[i].rid for i in keep],
+              f"parent {parent.rid}: lanes out of rank order")
+        check(done.tokens == lanes[keep[0]].out_tokens,
+              f"parent {parent.rid}: stream is not its winning lane's")
+    # each lane against the same member served alone (its own engine)
+    alone = []
+    for parent in parents():
+        for m in groups.expand(parent):
+            solo = eng_mod.Engine(params, cfg, ecfg, device="cuda")
+            solo.run([m], max_ticks=500)
+            check(len(solo.completed) == 1, f"member {m.rid} alone failed")
+            alone.extend(solo.completed)
+    agree = agreement(torch, model_lib, api, list(members.values()), alone,
+                      *BF16_TOL)
+    check(not agree["violations"], f"group lanes disagree with members "
+          f"served alone: {agree['first_violations']}")
+    return {"wall_s": wall, "ticks": stats["ticks"],
+            "decode_ticks": stats["decode_ticks"],
+            "shared_pages_adopted": stats["shared_pages_adopted"],
+            "prefill_tokens": stats["prefill_tokens"], "launches": n,
+            "parents": {rid: {"lanes": [o.rid for o in out.group_outputs],
+                              "tokens": len(out.tokens)}
+                        for rid, out in finals.items()
+                        if out.group_outputs is not None},
+            "agreement_vs_alone": {**agree, "rtol": BF16_TOL[0],
+                                   "atol": BF16_TOL[1]}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="on-card smoke of the port")
     ap.add_argument("--seed", type=int, default=0)
@@ -426,11 +718,16 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
-    from repro_torch.kernels.paged_attention import (paged_attention,
-                                                     paged_attention_ref)
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_ref, paged_attention_verify,
+        paged_attention_verify_ref)
     from repro_torch.models import model as model_lib
-    from repro_torch.serve import api, traces
+    from repro_torch.serve import api, groups, traces
     from repro_torch.serve import engine as eng_mod
+    from repro_torch.serve import spec as spec_mod
+    counters = {"paged_attention": paged_attention,
+                "paged_attention_verify": paged_attention_verify,
+                "flash_attention": flash_attention}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -453,27 +750,40 @@ def main() -> int:
     # -- phase 2: kernels -----------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     paged_cases = check_paged(torch, gen, paged_attention, paged_attention_ref)
+    verify_cases = check_verify(torch, gen, paged_attention_verify,
+                                paged_attention_verify_ref, paged_attention)
     flash_cases = check_flash(torch, gen, flash_attention, attention_ref)
     print("kernel checks: " + json.dumps({"paged": paged_cases,
+                                          "verify": verify_cases,
                                           "flash": flash_cases}))
+    cfg = configs.get_config("smollm-360m")
+    # verify timing positions: the spec trace's first 8 requests, 16 tokens
+    # into their decode
+    positions = [len(r.tokens) + 16 for r in spec_trace(traces, cfg,
+                                                         args.seed)[:8]]
     paged_t = time_paged(torch, gen, paged_attention, paged_attention_ref)
+    verify_t = time_verify(torch, gen, paged_attention_verify,
+                           paged_attention_verify_ref, positions)
     flash_t = time_flash(torch, gen, flash_attention, attention_ref)
     print("kernel timing shapes: " + json.dumps(
         {"paged_attention": paged_t["shape"],
+         "paged_attention_verify": {**verify_t["shape"],
+                                    "library": verify_t["library_note"]},
          "flash_attention": flash_t["shape"]}))
 
     # -- phase 3: the engine on smollm-360m -----------------------------------
-    cfg = configs.get_config("smollm-360m")
     params = model_lib.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(args.seed),
         device="cuda")
     print(f"smollm-360m: {model_lib.param_count(params) / 1e6:.1f}M params, "
           f"{cfg.num_layers} layers, dtype {cfg.dtype}")
     trace = make_trace(traces, cfg, args.seed)
-    paged_attention.launches = 0
-    flash_attention.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     eng, stats, wall = serve(torch, eng_mod, params, cfg, trace, "kernel")
     paged_n, flash_n = paged_attention.launches, flash_attention.launches
+    check(paged_attention_verify.launches == 0,
+          "the plain engine launched the verify kernel")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(stats["completed"] == len(trace) and not stats["shed"]
           and not stats["rejected"] and not stats["corrupted"],
@@ -514,7 +824,9 @@ def main() -> int:
          "torch_ms_per_tick": 1e3 * stats_ref["decode_seconds"]
          / stats_ref["decode_ticks"]}))
     prof = profile_decode(torch, eng_mod, params, cfg,
-                          make_trace(traces, cfg, args.seed))
+                          make_trace(traces, cfg, args.seed),
+                          engine_config(eng_mod, "kernel",
+                                        capture_logits=False))
     print("decode tick profile: " + json.dumps(prof))
     del eng, eng_ref, params
 
@@ -543,11 +855,40 @@ def main() -> int:
                                    traces, args.seed)
     print(f"smoke engine == one-shot generate on {n_smoke} requests")
 
+    # -- phases 4 and 5: speculative decoding and slot groups -----------------
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(args.seed),
+        device="cuda")
+    drafty = spec_mod.make_draft_friendly(params, cfg, SPEC_DEPTH)
+    spec_rep, verify_n = spec_phase(torch, eng_mod, traces, model_lib, api,
+                                    drafty, cfg, args.seed, counters)
+    print("spec decode: " + json.dumps(spec_rep))
+    long = [dataclasses.replace(r, params=dataclasses.replace(
+        r.params, max_new_tokens=128)) for r in spec_trace(traces, cfg,
+                                                           args.seed)]
+    for spec in (True, False):
+        ecfg = spec_config(eng_mod, spec, capture_logits=False)._replace(
+            prefill_chunk=0)
+        prof = profile_decode(torch, eng_mod, drafty, cfg, long, ecfg)
+        print(f"{'spec' if spec else 'plain'} tick profile (spec trace): "
+              + json.dumps(prof))
+    del drafty
+    group_rep = group_phase(torch, eng_mod, groups, model_lib, api, params,
+                            cfg, args.seed, counters)
+    print("slot groups: " + json.dumps(group_rep))
+    del params
+
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:161",
          "launches": paged_n, **{k: paged_t[k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}},
+        {"name": "paged_attention_verify", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention/kernel.py:118",
+         "launches": verify_n, **{k: verify_t[k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")}},
         {"name": "flash_attention", "route": "cuda",

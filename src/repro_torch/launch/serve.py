@@ -6,8 +6,9 @@ primitives, per-token ``RequestOutput`` deltas streamed as they are emitted.
         --smoke --stream --requests 40 --slots 4 [--device cpu] \
         [--policy fifo] [--attn-backend torch] \
         [--temperature 0.8 --top-p 0.9 --sample-seed 7] \
-        [--trace shared-prefix|contention] [--no-prefix-sharing] \
-        [--pin-pages 8] [--admission reserve] [--prefill-streams 2]
+        [--trace shared-prefix|contention|agentic] [--no-prefix-sharing] \
+        [--pin-pages 8] [--admission reserve] [--prefill-streams 2] \
+        [--spec-decode 4 --spec-draft-layers 1]
 
 Runs on ``cuda`` unless ``--device cpu`` is given; the weights are random
 from ``--seed``. The one-shot batch path, ``--replicas``, ``--faults``,
@@ -64,10 +65,25 @@ def build_parser() -> argparse.ArgumentParser:
                          "(plain versions on CPU tensors) or the torch "
                          "gather oracle")
     ap.add_argument("--trace", default="bursty",
-                    choices=("bursty", "shared-prefix", "contention"))
+                    choices=("bursty", "shared-prefix", "contention",
+                             "agentic"),
+                    help="synthetic arrival trace: bursty heterogeneous, "
+                         "system-prompt traffic (prefix sharing), page-pool "
+                         "contention (preemption), or agentic multi-turn "
+                         "re-submission with grown prompts (prefix sharing "
+                         "and speculative decoding)")
     ap.add_argument("--pin-pages", type=int, default=0)
     ap.add_argument("--admission", default="preempt",
                     choices=("preempt", "reserve"))
+    ap.add_argument("--spec-decode", type=int, default=0, metavar="K",
+                    help="self-speculative decoding: draft K tokens per tick "
+                         "through the first --spec-draft-layers layers and "
+                         "verify them in one batched paged step (0 = off; "
+                         "ticks with sampled, penalized or logprob residents "
+                         "run plain)")
+    ap.add_argument("--spec-draft-layers", type=int, default=0,
+                    help="truncated draft depth in layers (required > 0 and "
+                         "< num_layers with --spec-decode)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--top-k", type=int, default=0)
@@ -107,7 +123,8 @@ def main(argv=None):
         num_pages=args.pages, prefill_chunk=args.prefill_chunk,
         prefix_sharing=args.prefix_sharing, attn_backend=args.attn_backend,
         prefill_streams=args.prefill_streams, pin_pages=args.pin_pages,
-        admission_mode=args.admission)
+        admission_mode=args.admission, spec_decode=args.spec_decode,
+        spec_draft_layers=args.spec_draft_layers)
     sampling = dict(temperature=args.temperature, top_p=args.top_p,
                     top_k=args.top_k, sample_seed=args.sample_seed)
     if args.trace == "shared-prefix":
@@ -119,6 +136,11 @@ def main(argv=None):
         trace = traces.contention_trace(
             cfg, num_requests=args.requests, hog_prompt=2 * args.page_size,
             hog_tokens=args.steps, **sampling)
+    elif args.trace == "agentic":
+        trace = traces.agentic_trace(
+            cfg, sessions=max(1, args.requests // 4), turns=4,
+            base_prompt=max(args.prompt_len, 2 * args.page_size),
+            decode_lens=(args.steps // 2, args.steps), **sampling)
     else:
         trace = traces.synthetic_trace(cfg, num_requests=args.requests,
                                        heavy_tokens=args.steps + 8, **sampling)
@@ -139,7 +161,7 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     print(f"[{args.policy} on {args.device}, {args.attn_backend} attention] "
           f"{stats['completed']} completed / {stats['shed']} shed / "
-          f"{stats['rejected']} rejected of {args.requests} requests in "
+          f"{stats['rejected']} rejected of {len(trace)} requests in "
           f"{stats['ticks']} ticks ({dt:.1f}s wall)")
     print(f"  throughput {stats['throughput']:.2f} tok/tick | p50 "
           f"{stats['p50_latency']:.0f} / p99 {stats['p99_latency']:.0f} ticks"
@@ -151,6 +173,12 @@ def main(argv=None):
           f"{stats['prefix_hit_rate']:.2f} | {stats['cow_forks']} CoW forks "
           f"| {stats['preemptions']} preemptions "
           f"({stats['replayed_tokens']} tokens replayed)")
+    if args.spec_decode:
+        print(f"  spec decode: k={stats['spec_decode']} | "
+              f"{stats['spec_ticks']} spec ticks | accept rate "
+              f"{stats['spec_accept_rate']:.2f} "
+              f"({stats['spec_accepted']}/{stats['spec_drafted']} drafts) "
+              f"| {stats['spec_emitted']} tokens emitted speculatively")
     return stats
 
 

@@ -26,7 +26,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import flash_attention
-from ..kernels.paged_attention import paged_attention
+from ..kernels.paged_attention import paged_attention, paged_attention_verify
 
 BACKENDS = ("kernel", "torch")
 NEG_INF = -1e30
@@ -320,6 +320,19 @@ def _gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return g.reshape(*table.shape[:-1], -1, *pages.shape[2:])
 
 
+def _write_index(table: torch.Tensor, lpos: torch.Tensor,
+                 active: Optional[torch.Tensor], page: int):
+    """(physical page, offset) of each (lane, row) write at absolute
+    positions ``lpos`` (B, S). Inactive lanes and positions at or past the
+    table's ``maxp * page`` capacity write to the null page 0."""
+    maxp = table.shape[1]
+    writable = lpos < maxp * page
+    if active is not None:
+        writable = writable & active[:, None]
+    pidx = torch.gather(table.long(), 1, (lpos // page).clamp(max=maxp - 1))
+    return torch.where(writable, pidx, torch.zeros_like(pidx)), lpos % page
+
+
 def attention_decode_paged(params: Attention, x: torch.Tensor,
                            cfg: ModelConfig, cache: dict, pos: torch.Tensor,
                            table: torch.Tensor, active: torch.Tensor,
@@ -328,21 +341,20 @@ def attention_decode_paged(params: Attention, x: torch.Tensor,
 
     ``pos`` (B,) each slot's cache position; ``table`` (B, maxp) int32 block
     table; ``active`` (B,) routes inactive slots' writes to the null page.
-    The new K/V is written into the pool in place. ``backend="kernel"`` runs
-    the paged-decode kernel over the block table (its plain version on CPU
-    tensors); ``"torch"`` gathers the pages into a dense (B, maxp*page, ...)
-    K/V and runs the masked-softmax oracle."""
+    The new K/V is written into the pool in place; a position at or past the
+    table's capacity (a self-speculative draft step near ``max_cache``) is
+    routed to the null page too — the JAX package clamps the gather index
+    there and writes into a discarded copy, the port writes in place.
+    ``backend="kernel"`` runs the paged-decode kernel over the block table
+    (its plain version on CPU tensors); ``"torch"`` gathers the pages into a
+    dense (B, maxp*page, ...) K/V and runs the masked-softmax oracle."""
     check_backend(backend)
     b = x.shape[0]
     q, k, v = _qkv(params, x, cfg, pos[:, None])
-    page = cache["k"].shape[1]
-    rows = torch.arange(b, device=x.device)
-    posl = pos.long()
-    pidx = torch.where(active, table[rows, posl // page].long(),
-                       torch.zeros_like(posl))
-    off = posl % page
-    cache["k"].index_put_((pidx, off), k[:, 0])
-    cache["v"].index_put_((pidx, off), v[:, 0])
+    pidx, off = _write_index(table, pos.long()[:, None], active,
+                             cache["k"].shape[1])
+    cache["k"].index_put_((pidx[:, 0], off[:, 0]), k[:, 0])
+    cache["v"].index_put_((pidx[:, 0], off[:, 0]), v[:, 0])
     if backend == "kernel":
         out = paged_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
                               table, (pos + 1).to(torch.int32))
@@ -353,6 +365,46 @@ def attention_decode_paged(params: Attention, x: torch.Tensor,
         kpos = torch.arange(gk.shape[1], device=x.device)[None, :]
         mask = kpos <= pos[:, None]
         out = _sdpa(q, gk, gv, mask[:, None, :], cfg)
+    return out @ params.wo, cache
+
+
+def attention_verify_paged(params: Attention, x: torch.Tensor,
+                           cfg: ModelConfig, cache: dict, pos: torch.Tensor,
+                           table: torch.Tensor,
+                           active: Optional[torch.Tensor],
+                           backend: str = "kernel"):
+    """Batched Sq-position verify step against the paged pool
+    (self-speculative decoding).
+
+    x: (B, Sq, D) — row 0 is the slot's last emitted token at cache position
+    ``pos``, rows 1..Sq-1 the draft tokens at ``pos+1..pos+Sq-1``. Every row
+    writes its K/V at its own position, in place (inactive lanes and
+    positions past the table's capacity write to the null page), then attends
+    causally up to itself. Per row this is the computation
+    ``attention_decode_paged`` runs at that position with that K/V prefix
+    resident — the JAX package holds the two bitwise equal; here they agree
+    within rounding (a 5-row and a 1-row projection sum in different orders
+    on the card). Positions the accept loop rejects keep draft K/V; they are
+    read only masked and are overwritten before they become visible.
+    ``backend="kernel"`` runs the verify kernel (its plain version on CPU
+    tensors); ``"torch"`` gathers the pages and runs ``_sdpa`` with a
+    (B, Sq, S) mask."""
+    check_backend(backend)
+    b, sq, _ = x.shape
+    lpos = pos.long()[:, None] + torch.arange(sq, device=x.device)[None, :]
+    q, k, v = _qkv(params, x, cfg, lpos)
+    pidx, off = _write_index(table, lpos, active, cache["k"].shape[1])
+    cache["k"].index_put_((pidx, off), k)
+    cache["v"].index_put_((pidx, off), v)
+    if backend == "kernel":
+        out = paged_attention_verify(q.contiguous(), cache["k"], cache["v"],
+                                     table, pos.to(torch.int32))
+        out = out.reshape(b, sq, -1).to(v.dtype)
+    else:
+        gk = _gather_pages(cache["k"], table)
+        gv = _gather_pages(cache["v"], table)
+        kpos = torch.arange(gk.shape[1], device=x.device)[None, None, :]
+        out = _sdpa(q, gk, gv, kpos <= lpos[:, :, None], cfg)
     return out @ params.wo, cache
 
 

@@ -203,6 +203,28 @@ def decode_step(params: Model, cfg: ModelConfig, batch: dict, cache: dict,
                                    "pos": cache["pos"] + 1}
 
 
+def verify_step(params: Model, cfg: ModelConfig, batch: dict, pool: dict,
+                table: torch.Tensor, active: Optional[torch.Tensor] = None,
+                attn_backend: str = "kernel"):
+    """Batched k-position verify step for self-speculative decoding.
+
+    ``batch["tokens"]`` is (B, K+1): each slot's last emitted token followed
+    by its K draft proposals. Row ``j`` is scored at cache position
+    ``pool["pos"] + j`` with causal access up to itself, and K/V for every
+    row is written into the paged pool (in place) as a side effect. Row
+    ``j``'s logits are what ``decode_step`` would produce row by row; the JAX
+    package holds that bitwise, the port within rounding (see
+    ``layers.attention_verify_paged``).
+
+    Returns ``(logits (B, K+1, V), pool)``; ``pos`` is left untouched — the
+    engine owns position advancement from its host-side accept loop."""
+    x = _embed(params, cfg, batch["tokens"])
+    x, layer_caches = transformer.apply_stack_verify(
+        params.blocks, x, cfg, pool["layers"], pool["pos"], table,
+        active=active, attn_backend=attn_backend)
+    return _head(params, cfg, x), {"layers": layer_caches, "pos": pool["pos"]}
+
+
 # ---------------------------------------------------------------------------
 # paged slot-pool surgery (block-table KV cache, continuous-batching engine)
 # ---------------------------------------------------------------------------
@@ -278,6 +300,22 @@ def copy_page_paged(pool: dict, cfg: ModelConfig, src: int, dst: int) -> dict:
         return full_d
 
     transformer.map_block_caches(cfg, cp, pool["layers"])
+    return pool
+
+
+def scrub_pages_paged(pool: dict, cfg: ModelConfig, pages) -> dict:
+    """Zero the K/V of physical ``pages`` in every layer's pool (in place)."""
+    if not pages:
+        return pool
+    idx = torch.as_tensor(list(pages), dtype=torch.long,
+                          device=pool["pos"].device)
+
+    def zero(kind, full_d):
+        for full in full_d.values():
+            full.index_fill_(1, idx, 0)
+        return full_d
+
+    transformer.map_block_caches(cfg, zero, pool["layers"])
     return pool
 
 

@@ -113,13 +113,21 @@ def apply_stack_prefill(stack: nn.ModuleList, x, cfg: ModelConfig,
     return x, caches
 
 
-def apply_stack_decode(stack: nn.ModuleList, x, cfg: ModelConfig, caches: list,
-                       pos: torch.Tensor, table=None, active=None,
-                       attn_backend: str = "kernel"):
-    """One-token pass. ``table``/``active`` select the paged KV path (the same
-    block table for every layer); ``attn_backend`` picks its compute.
-    Returns (x, caches)."""
-    for blk, cache in _layers(stack, cfg, caches):
+def truncate_stack(stack: nn.ModuleList, cfg: ModelConfig, caches: list,
+                   depth: int) -> list:
+    """The first ``depth`` (block, cache view) pairs — the self-speculative
+    draft's weight reuse. Layer d's input depends only on layers < d, so the
+    pool's leading-``depth`` K/V *is* the truncated model's cache: there are
+    no draft weights and no draft cache. (The JAX package slices the stacked
+    parameter and cache trees; here it is a slice of the layer walk.)"""
+    return list(_layers(stack, cfg, caches))[:depth]
+
+
+def apply_layers_decode(pairs, x, cfg: ModelConfig, pos: torch.Tensor,
+                        table=None, active=None, attn_backend: str = "kernel"):
+    """One-token pass through (block, cache view) ``pairs`` — the whole stack
+    (``apply_stack_decode``) or a truncated one (``truncate_stack``)."""
+    for blk, cache in pairs:
         h = rmsnorm(blk.norm1, x, cfg)
         if table is not None:
             y, _ = layers.attention_decode_paged(blk.mixer, h, cfg, cache, pos,
@@ -128,6 +136,40 @@ def apply_stack_decode(stack: nn.ModuleList, x, cfg: ModelConfig, caches: list,
         else:
             y, _ = layers.attention_decode(blk.mixer, h, cfg, cache, pos)
         x = _mlp_residual(blk, x + y, cfg)
+    return x
+
+
+def apply_stack_decode(stack: nn.ModuleList, x, cfg: ModelConfig, caches: list,
+                       pos: torch.Tensor, table=None, active=None,
+                       attn_backend: str = "kernel"):
+    """One-token pass. ``table``/``active`` select the paged KV path (the same
+    block table for every layer); ``attn_backend`` picks its compute.
+    Returns (x, caches)."""
+    return apply_layers_decode(_layers(stack, cfg, caches), x, cfg, pos,
+                               table=table, active=active,
+                               attn_backend=attn_backend), caches
+
+
+def apply_block_verify(blk: Block, x, cfg: ModelConfig, cache: dict,
+                       pos: torch.Tensor, table: torch.Tensor, active=None,
+                       attn_backend: str = "kernel"):
+    """Sq-position verify block step against the paged pool (the ``attn``
+    kind: no slot-row state, so every (lane, position) row is independent)."""
+    y, _ = layers.attention_verify_paged(blk.mixer, rmsnorm(blk.norm1, x, cfg),
+                                         cfg, cache, pos, table, active,
+                                         backend=attn_backend)
+    return _mlp_residual(blk, x + y, cfg)
+
+
+def apply_stack_verify(stack: nn.ModuleList, x, cfg: ModelConfig,
+                       caches: list, pos: torch.Tensor, table: torch.Tensor,
+                       active=None, attn_backend: str = "kernel"):
+    """Sq-position verify pass (self-speculative decoding): every lane scores
+    ``Sq`` consecutive positions starting at its ``pos`` in one batched step.
+    Returns (x, caches)."""
+    for blk, cache in _layers(stack, cfg, caches):
+        x = apply_block_verify(blk, x, cfg, cache, pos, table, active,
+                               attn_backend=attn_backend)
     return x, caches
 
 

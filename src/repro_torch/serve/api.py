@@ -8,9 +8,12 @@
     admission loop reads (``rclass``, ``arrival``, optional wall-clock
     ``deadline``).
   * ``RequestOutput``  — incremental token deltas plus finish reason and
-    tick / wall-clock latency accounting.
+    tick / wall-clock latency accounting; a slot-group parent's terminal
+    output carries its member lanes in ``group_outputs``.
 
-Slot groups (``n`` / ``best_of`` > 1) arrive with slice 2 and are rejected.
+A request with ``n`` / ``best_of`` > 1 is a slot-group parent
+(``serve.groups``): the engine expands it into member lanes that share its
+prompt pages, and ``generate`` serves each member one-shot and assembles them.
 """
 from __future__ import annotations
 
@@ -48,8 +51,9 @@ class SamplingParams:
     repetition_penalty: float = 1.0
     presence_penalty: float = 0.0
     frequency_penalty: float = 0.0
-    n: int = 1
-    best_of: int = 0
+    n: int = 1                 # completions to return (slot-group lanes)
+    best_of: int = 0           # 0: off; >= n: sample best_of lanes, keep the
+    #                            n best by cumulative chosen-token logprob
 
     def __post_init__(self):
         if self.temperature < 0:
@@ -69,9 +73,6 @@ class SamplingParams:
         if self.best_of and self.best_of < self.n:
             raise ValueError(
                 f"best_of must be 0 or >= n, got {self.best_of} < {self.n}")
-        if self.n > 1 or self.best_of > 1:
-            raise NotImplementedError(
-                "n / best_of > 1 (slot groups) are ported in slice 2")
         object.__setattr__(self, "logprobs", int(self.logprobs))
         if self.logprobs < 0:
             raise ValueError(f"logprobs must be >= 0, got {self.logprobs}")
@@ -85,6 +86,11 @@ class SamplingParams:
     def has_penalties(self) -> bool:
         return (self.repetition_penalty != 1.0 or self.presence_penalty != 0.0
                 or self.frequency_penalty != 0.0)
+
+    @property
+    def group_size(self) -> int:
+        """Engine lanes this request owns (``best_of`` supersedes ``n``)."""
+        return max(self.n, self.best_of, 1)
 
     def key(self) -> np.ndarray:
         """Host copy of the request's base PRNG key (2,) uint32."""
@@ -125,6 +131,12 @@ class ServeRequest:
     rclass: int = 0
     arrival: int = 0
     deadline: Optional[float] = None
+
+    # slot-group membership (serve.groups): group == -1 is a standalone
+    # request; members carry the parent rid in ``group`` and their lane index
+    group: int = -1
+    lane: int = 0
+    group_size: int = 1
 
     # filled in by the serving backend
     out_tokens: list = field(default_factory=list)
@@ -186,6 +198,9 @@ class RequestOutput:
     new_logprobs: Optional[list] = None
     logprobs: Optional[list] = None
     top_logprobs: Optional[list] = None
+    # a slot-group parent's finished member outputs in rank order
+    # (cumulative chosen-token logprob for best_of, lane order for n)
+    group_outputs: Optional[list] = None
     preemptions: int = 0
     requeue_ticks: int = 0
 
@@ -220,11 +235,23 @@ def generate(params, cfg: ModelConfig,
     under its own ``SamplingParams`` on the model's device, returning
     finished ``RequestOutput``s — the oracle the engine is held to. With
     ``capture_logits`` each request's per-token logits rows land in
-    ``req.out_logits``."""
+    ``req.out_logits``. A slot-group parent is expanded into its member
+    lanes, each served one-shot, and assembled as the engine assembles it."""
+    from . import groups
     single = isinstance(requests, ServeRequest)
     reqs = [requests] if single else list(requests)
-    outs = [_oneshot_one(params, cfg, r, max_cache, capture_logits,
-                         attn_backend) for r in reqs]
+    outs = []
+    for req in reqs:
+        if req.params.group_size > 1:
+            t0 = time.perf_counter()
+            members = groups.expand(req)
+            member_outs = [_oneshot_one(params, cfg, m, max_cache,
+                                        capture_logits, attn_backend)
+                           for m in members]
+            outs.append(groups.assemble(req, members, member_outs, t0))
+        else:
+            outs.append(_oneshot_one(params, cfg, req, max_cache,
+                                     capture_logits, attn_backend))
     return outs[0] if single else outs
 
 

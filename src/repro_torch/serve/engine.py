@@ -28,6 +28,18 @@ cache and splices it into the slot's pages; chunked prefill
 paged attention through ``EngineConfig.attn_backend``: ``"kernel"`` (the
 CUDA kernel on the card) or ``"torch"`` (the gather oracle).
 
+Self-speculative decoding (``EngineConfig.spec_decode = k > 0``): while every
+resident is greedy with no penalties and no logprobs, a tick drafts ``k``
+tokens through the first ``spec_draft_layers`` layers of the same weights and
+scores them in one batched paged verify step (``serve.spec``); the host
+accepts the longest agreeing draft prefix plus the bonus token.
+
+Slot groups (``SamplingParams.n`` / ``best_of`` > 1, ``serve.groups``): a
+parent expands into member lanes at ``submit``; lane 0 prefills and
+registers the shared prompt, its siblings adopt those pages; a group is
+rejected whole, preempted as a unit, cancelled whole on an abnormal exit,
+and assembled into one parent output by ``stream()``.
+
 Admission is the immune loop applied to serving — schedule on remembered
 cost, not instantaneous load:
 
@@ -39,9 +51,8 @@ cost, not instantaneous load:
                             without co-stimulation are shed; IL-2 revives
                             them when queue pressure drops.
 
-Not ported yet: speculative decoding and slot groups (slice 2), and the
-fleet hooks — evacuation, warm-state export/import and placement telemetry
-(slice 6).
+Not ported yet: the fleet hooks — evacuation, warm-state export/import and
+placement telemetry (slice 6).
 """
 from __future__ import annotations
 
@@ -55,7 +66,9 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core import immune
-from ..models import layers, model
+from ..models import layers, model, transformer
+from . import groups
+from . import spec as specdec
 from .api import RequestOutput, ServeRequest, spec_for
 from .decode import greedy, null_spec, topk_logprobs
 from .paging import OutOfPages, PageAllocator, pages_for
@@ -87,7 +100,13 @@ class EngineConfig(NamedTuple):
     capture_logits: bool = False      # record per-token logits rows
     admission_mode: str = "preempt"   # "preempt" | "reserve"
     pin_pages: int = 0                # persistent prefix-cache budget (pages)
-    spec_decode: int = 0              # speculative decoding: slice 2
+    # -- self-speculative decoding -------------------------------------------
+    spec_decode: int = 0              # k: draft tokens proposed per spec tick
+    #                                   (0 = off); spec ticks run only on
+    #                                   all-greedy resident batches with no
+    #                                   penalties/logprobs
+    spec_draft_layers: int = 0        # draft depth: leading layers of the
+    #                                   same weights; in (0, num_layers)
 
 
 @dataclass
@@ -229,9 +248,12 @@ class Engine:
         layers.check_backend(ecfg.attn_backend)
         if ecfg.admission_mode not in ("preempt", "reserve"):
             raise ValueError(f"unknown admission_mode {ecfg.admission_mode!r}")
-        if ecfg.spec_decode:
-            raise NotImplementedError(
-                "speculative decoding (spec_decode > 0) is ported in slice 2")
+        if ecfg.spec_decode < 0:
+            raise ValueError(f"spec_decode must be >= 0, got {ecfg.spec_decode}")
+        if ecfg.spec_decode and not 0 < ecfg.spec_draft_layers < cfg.num_layers:
+            raise ValueError(
+                f"spec_draft_layers must be in (0, {cfg.num_layers}), got "
+                f"{ecfg.spec_draft_layers}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -256,6 +278,12 @@ class Engine:
         self._chunked = ecfg.prefill_chunk > 0
         self._share_ok = ecfg.prefix_sharing and self._chunked
         self._multi_prefill = ecfg.prefill_streams > 1
+        # self-speculative decoding needs one segment for the truncated-depth
+        # draft slice (the dense stack has one); the per-tick gate in step()
+        # additionally requires every resident greedy with no penalties or
+        # logprobs
+        self._spec_ok = (ecfg.spec_decode > 0
+                         and len(transformer.segments(cfg)) == 1)
         dev = self.device
         self.pool = model.init_slot_cache_paged(cfg, s, ecfg.max_cache,
                                                 num_pages, ecfg.page_size, dev)
@@ -307,6 +335,19 @@ class Engine:
         self.prefills = 0                  # one-shot prefill calls
         self.decode_ticks = 0              # batched decode steps run
         self.decode_seconds = 0.0          # host clock inside decode steps
+        # self-speculative decode telemetry
+        self.spec_ticks = 0                # fused draft+verify ticks run
+        self.spec_drafted = 0              # draft tokens proposed (k per lane)
+        self.spec_accepted = 0             # draft tokens accepted and emitted
+        self.spec_emitted = 0              # tokens emitted by spec ticks
+        self.spec_seconds = 0.0            # host clock inside spec ticks
+        # slot groups: parents submitted here assemble their output here
+        self.group_book = groups.GroupBook()
+        self.groups_submitted = 0
+        # groups whose shared prompt pages are registered (lane 0's prefill
+        # landed): sibling lanes defer admission until then, so the prompt's
+        # pages are charged once and adopted n-1 times
+        self._group_ready: set = set()
         self._admitted_this_tick = 0
         self._decoding_before_admit = False
 
@@ -323,6 +364,23 @@ class Engine:
                              f"[0, {self.ecfg.num_classes})")
         if req.submit_time < 0:
             req.submit_time = time.perf_counter()
+        if req.params.group_size > 1 and req.group < 0:
+            # slot-group parent: members are identical but for their seeds,
+            # so one probe decides the whole group — admitted whole or
+            # rejected whole; the parent itself never holds a slot
+            members = groups.expand(req)
+            probe = members[0]
+            if len(probe.tokens) + probe.max_new_tokens > self.ecfg.max_cache \
+                    or self._need_pages(probe) > self.alloc.usable_pages:
+                req.finish_reason = "rejected"
+                self.rejected.append(req)
+                return
+            self.groups_submitted += 1
+            self.group_book.register(req)
+            for m in members:
+                m.submit_time = req.submit_time
+                self.queue.append(m)
+            return
         need = len(req.tokens) + req.max_new_tokens
         if need > self.ecfg.max_cache \
                 or self._need_pages(req) > self.alloc.usable_pages:
@@ -499,14 +557,19 @@ class Engine:
         """Preemption priority, highest evicted first: anergic classes, then
         classes over their latency budget, then the highest remembered cost,
         then the latest arrival (the oldest resident always runs to
-        completion), then least progress / rid."""
+        completion), then least progress / rid. A group member's progress is
+        its resident group's: evicting one member evicts them all."""
         over = 1.0 if self._over_budget_now(req) else 0.0
         if self.admission is not None:
             anergy = float(self.admission.anergy.level[req.rclass])
             cost = self.admission.remembered_cost(req.rclass)
         else:
             anergy = cost = 0.0
-        return (anergy, over, cost, req.arrival, -len(req.out_tokens), req.rid)
+        progress = len(req.out_tokens)
+        if req.group >= 0:
+            progress = sum(len(r.out_tokens) for r in self.slots
+                           if r is not None and r.group == req.group)
+        return (anergy, over, cost, req.arrival, -progress, req.rid)
 
     def _pick_victim(self) -> Optional[int]:
         best, best_score = None, None
@@ -537,7 +600,7 @@ class Engine:
         self.tok_counts[slot] = 0
         self._spec_cache = None
 
-    def _preempt(self, slot: int) -> None:
+    def _preempt_one(self, slot: int) -> None:
         """Evict ``slot``'s request: drop its pages and any in-flight prefill
         job, and re-queue it at the front for exact re-entry."""
         req = self.slots[slot]
@@ -548,7 +611,24 @@ class Engine:
         req.preempt_tick = self.tick
         self.preemptions += 1
         self.preempted_rids.add(req.rid)
+        if req.group >= 0:
+            # eviction may drop the shared chain's last refcount: the ready
+            # bit is stale until some lane's re-prefill registers it again
+            self._group_ready.discard(req.group)
         self.queue.appendleft(req)
+
+    def _preempt(self, slot: int) -> None:
+        """Evict ``slot``'s request and, for a slot-group member, its
+        resident siblings with it, in descending lane order so lane 0 ends
+        at the queue front and re-registers the shared prefix first."""
+        req = self.slots[slot]
+        targets = [slot]
+        if req.group >= 0:
+            targets = [s for _, s in sorted(
+                ((r.lane, s) for s, r in enumerate(self.slots)
+                 if r is not None and r.group == req.group), reverse=True)]
+        for s in targets:
+            self._preempt_one(s)
 
     def _acquire(self, slot: int, npages: int) -> bool:
         """Grow ``slot`` to ``npages``, resolving page exhaustion by
@@ -557,7 +637,12 @@ class Engine:
         if self.ecfg.admission_mode == "reserve":
             self.alloc.ensure(slot, npages)
             return True
+        req = self.slots[slot]
         while True:
+            # a victim's group cascade may have evicted this slot's own
+            # request as a sibling: the caller must stop driving the slot
+            if req is not None and self.slots[slot] is not req:
+                return False
             try:
                 self.alloc.ensure(slot, npages)
                 return True
@@ -576,19 +661,25 @@ class Engine:
             return
         if self.admission is None:                      # FIFO baseline
             while free and self.queue:
-                if not self._admit_into(self.queue[0], free[0]):
+                if self._deferred_member(self.queue[0]) \
+                        or not self._admit_into(self.queue[0], free[0]):
                     break     # strict FIFO: an unfit head blocks the line
                 self.queue.popleft()
                 free.pop(0)
             return
         adm = self.admission
-        # tolerance turned shedding: anergic classes are rejected outright
+        # tolerance turned shedding: anergic classes are rejected outright;
+        # shedding one group member sheds its group
         for req in [r for r in self.queue if not adm.admissible(r.rclass)]:
+            if req not in self.queue:
+                continue                  # already cancelled with its group
             self.queue.remove(req)
             req.finish_reason = "shed"
             self.shed.append(req)
             req.finish_tick = self.tick
             req.finish_time = time.perf_counter()
+            if req.group >= 0:
+                self._cancel_group(req.group, "shed")
         if adm.throttled():                             # delayed suppression
             return
         # anticipation: order by remembered class cost; a candidate the pool
@@ -599,10 +690,50 @@ class Engine:
         for req in candidates:
             if not free:
                 break
-            if not self._admit_into(req, free[0]):
+            if self._deferred_member(req) or not self._admit_into(req,
+                                                                  free[0]):
                 continue
             self.queue.remove(req)
             free.pop(0)
+
+    def _deferred_member(self, req: ServeRequest) -> bool:
+        """Sibling lanes of a group wait (under prefix sharing) until a
+        member's prompt pages are registered, so they adopt them instead of
+        each paying a full prefill. The wait holds only while a lower lane is
+        still queued or mid-prefill: otherwise nobody will register the chain
+        and the lane admits now."""
+        if req.group < 0 or req.lane == 0 or not self._share_ok:
+            return False
+        if req.group in self._group_ready:
+            return False
+        return (any(q.group == req.group and q.lane < req.lane
+                    for q in self.queue)
+                or any(j.req.group == req.group and j.req.lane < req.lane
+                       for j in self.jobs))
+
+    def _cancel_group(self, gid: int, reason: str) -> None:
+        """One member shed or corrupted takes its siblings with it: resident
+        lanes release their slots, queued lanes leave the queue, all with the
+        member's ``reason``. A group completes whole or fails whole."""
+        sink = {"shed": self.shed, "corrupted": self.corrupted,
+                "rejected": self.rejected}[reason]
+        for slot, r in enumerate(self.slots):
+            if r is None or r.group != gid:
+                continue
+            self.jobs = deque(j for j in self.jobs if j.slot != slot)
+            self._free_slot(slot)
+            r.slot = -1
+            r.finish_reason = reason
+            r.finish_tick = self.tick
+            r.finish_time = time.perf_counter()
+            sink.append(r)
+        for r in [q for q in self.queue if q.group == gid]:
+            self.queue.remove(r)
+            r.finish_reason = reason
+            r.finish_tick = self.tick
+            r.finish_time = time.perf_counter()
+            sink.append(r)
+        self._group_ready.discard(gid)
 
     def _predicted_costs(self) -> np.ndarray:
         """Per-class cost estimate: the EMA memory, floored by the ticks
@@ -628,6 +759,8 @@ class Engine:
         if job.share:
             self.alloc.register_prefix(job.slot, job.req.tokens,
                                        rclass=job.req.rclass)
+            if job.req.group >= 0:
+                self._group_ready.add(job.req.group)
 
     def _prefill_tick(self):
         """Land one chunk of up to ``prefill_streams`` front prefill jobs
@@ -745,13 +878,29 @@ class Engine:
 
     def _retire_corrupted(self, slot: int) -> None:
         """Retire a lane whose decode logits came back non-finite (no cost
-        observation: corruption is not a workload signal)."""
+        observation: corruption is not a workload signal), and its group.
+
+        Before its pages return to the pool, the K and V of every layer are
+        zeroed on each page the lane owns alone and that no prefix chain
+        indexes, and on the null page (where its writes past capacity land).
+        A later owner of such a page reads the lane's stale positions masked,
+        and 0 * NaN in the PV product — in the kernels, their plain versions
+        and the torch backend alike — would poison that owner too. Shared
+        and indexed pages hold prefill K/V written for another lane or before
+        the fault, which is finite. The reference frees the pages unscrubbed
+        and keeps this fault (src/repro/serve/engine.py:1301)."""
         req = self.slots[slot]
         req.finish_reason = "corrupted"
         req.finish_tick = self.tick
         req.finish_time = time.perf_counter()
         self.corrupted.append(req)
+        private = [p for p in self.alloc.owned(slot)
+                   if self.alloc.refcount(p) == 1
+                   and not self.alloc.is_indexed(p)]
+        model.scrub_pages_paged(self.pool, self.cfg, [0] + private)
         self._free_slot(slot)
+        if req.group >= 0:
+            self._cancel_group(req.group, "corrupted")
 
     # -- decode ticks --------------------------------------------------------
     def _plain_step(self, do_sample: bool, use_penalties: bool,
@@ -804,6 +953,64 @@ class Engine:
         for slot in bad:
             self._retire_corrupted(slot)
 
+    def _spec_step(self) -> None:
+        """One self-speculative tick: fused draft+verify, then the host-side
+        greedy accept loop. Per lane: accept the longest draft prefix where
+        ``d_j == argmax(row j-1)`` plus the bonus token ``argmax(row a)``,
+        stopping early at the request's stop/budget boundary."""
+        t0 = time.perf_counter()
+        k = self.ecfg.spec_decode
+        drafts, am, ok, logits, new_pool = specdec.spec_tick(
+            self.params, self.cfg, self.pool, self.last, self.active,
+            self._dev(self.alloc.table()), k=k,
+            depth=self.ecfg.spec_draft_layers,
+            attn_backend=self.ecfg.attn_backend,
+            return_logits=self.ecfg.capture_logits)
+        drafts_h = drafts.cpu().numpy()
+        am_h = am.cpu().numpy()
+        ok_h = ok.cpu().numpy()
+        lg_h = logits.cpu().numpy() if logits is not None else None
+        last_h = self.last.cpu().numpy().copy()
+        self.spec_ticks += 1
+        self.spec_seconds += time.perf_counter() - t0
+        bad: list[int] = []
+        for slot, req in enumerate(self.slots):
+            if req is None or not self.active_host[slot] \
+                    or self._finished(req):
+                continue
+            if not ok_h[slot]:
+                bad.append(slot)
+                continue
+            a = specdec.accept_length(drafts_h[slot], am_h[slot], k)
+            self.spec_drafted += k
+            emitted_now = 0
+            for j in range(a + 1):
+                tok = int(drafts_h[slot, j]) if j < a else int(am_h[slot, a])
+                if self.emitted[slot] >= len(req.out_tokens):
+                    req.out_tokens.append(tok)
+                    if lg_h is not None:
+                        req.out_logits.append(lg_h[slot, j].copy())
+                else:
+                    self.replayed_tokens += 1
+                    req.replayed_tokens += 1
+                self.emitted[slot] += 1
+                emitted_now += 1
+                last_h[slot, 0] = tok
+                if self._finished(req):
+                    break               # stop/budget: the rest is never real
+            self.spec_accepted += min(emitted_now, a)
+            self.spec_emitted += emitted_now
+            # pos advances by exactly what was emitted: verify wrote K/V for
+            # positions pos..pos+k, of which pos..pos+emitted_now-1 hold what
+            # sequential decode would have written; the stale tail is read
+            # only masked and is overwritten before it becomes visible
+            self.pos_host[slot] += emitted_now
+        self.last = self._dev(last_h)
+        self.pool = {"layers": new_pool["layers"],
+                     "pos": self._dev(self.pos_host, torch.int32)}
+        for slot in bad:
+            self._retire_corrupted(slot)
+
     # -- one tick ------------------------------------------------------------
     def step(self):
         """One engine tick: admit into free slots, land a prefill chunk,
@@ -821,17 +1028,27 @@ class Engine:
                       for r in self.slots)
         want_k = max((r.params.logprobs for r in self.slots
                       if r is not None), default=0)
+        # a spec tick only while every resident is greedy with no penalty or
+        # logprob state to advance per emitted token
+        use_spec = self._spec_ok and not do_sample and not want_lp
+        lookahead = self.ecfg.spec_decode if use_spec else 0
         page = self.ecfg.page_size
         for slot in np.flatnonzero(self.active_host):
             slot = int(slot)
             if not self.active_host[slot]:
                 continue              # preempted by an earlier slot's growth
-            # decode writes at pos: append a page at the boundary, preempting
-            # the lowest-priority resident if the pool is dry
-            cover = min(int(self.pos_host[slot]) + 1, self.ecfg.max_cache)
+            # decode writes at pos (a spec tick at pos..pos+k, clamped to the
+            # slot's capacity: writes past it go to the null page and belong
+            # to tokens the budget never emits): append pages at the
+            # boundary, preempting the lowest-priority resident if dry
+            cover = min(int(self.pos_host[slot]) + 1 + lookahead,
+                        self.ecfg.max_cache)
             self._acquire(slot, pages_for(cover, page))
         if self.active_host.any():
-            self._plain_step(do_sample, use_penalties, want_lp, want_k)
+            if use_spec:
+                self._spec_step()
+            else:
+                self._plain_step(do_sample, use_penalties, want_lp, want_k)
         self._retire()
         if self.admission is not None:
             demand = np.zeros(self.ecfg.num_classes, np.float64)
@@ -865,6 +1082,14 @@ class Engine:
             new_logprobs=new_lp, logprobs=full_lp, top_logprobs=topk,
             preemptions=req.preemptions, requeue_ticks=req.requeue_ticks)
 
+    def _report(self, req: ServeRequest, out: RequestOutput) -> Iterator:
+        """A member's terminal output, then its group's assembled parent
+        output when it was the group's last lane."""
+        yield out
+        done = self.group_book.offer(req, out)
+        if done is not None:
+            yield done
+
     def stream(self, requests: Optional[list] = None,
                max_ticks: int = 10_000) -> Iterator[RequestOutput]:
         """Open-loop drive as an iterator: submit each request at its
@@ -873,7 +1098,9 @@ class Engine:
         progress (``new_tokens`` = the delta since its previous output).
         Refusals ("rejected" / "shed" / "corrupted") are reported too, and
         requests still held when the backstop fires get a final
-        ``finish_reason="timeout"`` output with ``finished=False``."""
+        ``finish_reason="timeout"`` output with ``finished=False``. A
+        slot-group parent's assembled output follows its last member's
+        terminal output."""
         pending = sorted(requests or [], key=lambda r: (r.arrival, r.rid))
         i = 0
         sent: dict = {}                      # rid -> tokens already yielded
@@ -884,7 +1111,8 @@ class Engine:
             self.unsubmitted = len(pending) - i
             t = self.tick
             for req in self.rejected[self._reported_rejected:]:
-                yield self._output_for(req, t, [], True, reason="rejected")
+                yield from self._report(req, self._output_for(
+                    req, t, [], True, reason="rejected"))
             self._reported_rejected = len(self.rejected)
             drained = (i == len(pending) and not self.queue
                        and all(r is None for r in self.slots))
@@ -900,10 +1128,12 @@ class Engine:
             ndone = len(self.completed)
             self.step()
             for req in self.shed[self._reported_shed:]:
-                yield self._output_for(req, t, [], True, reason="shed")
+                yield from self._report(req, self._output_for(
+                    req, t, [], True, reason="shed"))
             self._reported_shed = len(self.shed)
             for req in self.corrupted[self._reported_corrupted:]:
-                yield self._output_for(req, t, [], True, reason="corrupted")
+                yield from self._report(req, self._output_for(
+                    req, t, [], True, reason="corrupted"))
             self._reported_corrupted = len(self.corrupted)
             live = [r for r in self.slots if r is not None]
             for req in live + self.completed[ndone:]:
@@ -913,8 +1143,8 @@ class Engine:
                 if n == k and not finished:
                     continue
                 sent[req.rid] = n
-                yield self._output_for(req, t, list(req.out_tokens[k:n]),
-                                       finished)
+                yield from self._report(req, self._output_for(
+                    req, t, list(req.out_tokens[k:n]), finished))
 
     def run(self, requests: list, max_ticks: int = 10_000) -> dict:
         """``stream()`` with the outputs discarded; returns ``stats()``."""
@@ -987,8 +1217,22 @@ class Engine:
                                      if r.deadline is not None),
             "penalized_requests": sum(1 for r in self.completed
                                       if r.params.has_penalties),
-            # port instrumentation: kernel launch accounting + decode timing
+            # self-speculative decoding: accept rate over proposed drafts and
+            # how much of the emitted stream came out of spec ticks
+            "spec_decode": self.ecfg.spec_decode,
+            "spec_ticks": self.spec_ticks,
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
+            "spec_emitted": self.spec_emitted,
+            "spec_accept_rate": self.spec_accepted / max(self.spec_drafted, 1),
+            # slot groups
+            "groups_submitted": self.groups_submitted,
+            "group_members_completed": sum(1 for r in self.completed
+                                           if r.group >= 0),
+            # port instrumentation: kernel launch accounting + host time
+            # inside plain decode ticks and inside spec ticks
             "prefills": self.prefills,
             "decode_ticks": self.decode_ticks,
             "decode_seconds": self.decode_seconds,
+            "spec_seconds": self.spec_seconds,
         }

@@ -184,6 +184,10 @@ class PageAllocator:
     def is_pinned(self, page: int) -> bool:
         return page in self._pinned
 
+    def is_indexed(self, page: int) -> bool:
+        """Does the prefix index hold ``page`` (a registered prompt page)?"""
+        return page in self._page_key
+
     def live_refs(self) -> int:
         """Sum of all refcounts == total block-table entries across slots."""
         return int(self._ref.sum())

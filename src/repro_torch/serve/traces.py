@@ -1,5 +1,6 @@
 """Synthetic open-loop arrival traces for the serving engine (PyTorch port of
-``repro/serve/traces.py``: the bursty, shared-prefix and contention traces).
+``repro/serve/traces.py``: the bursty, shared-prefix, contention and agentic
+traces).
 
 They emit ``ServeRequest``s for ``Engine.submit``/``run``/``stream``; every
 trace takes the sampling knobs (``temperature``/``top_p``/``top_k``/
@@ -126,4 +127,38 @@ def shared_prefix_trace(cfg: ModelConfig, num_requests: int = 32,
             arrival=rid * arrival_every,
         )
         reqs.append(req)
+    return reqs
+
+
+def agentic_trace(cfg: ModelConfig, sessions: int = 3, turns: int = 4,
+                  base_prompt: int = 24, grow_lens: tuple = (6, 10),
+                  decode_lens: tuple = (8, 12), turn_gap: int = 12,
+                  seed: int = 0, temperature: float = 0.0, top_p: float = 1.0,
+                  top_k: int = 0, sample_seed: int = 0) -> list:
+    """Agentic multi-turn traffic: each session re-submits its conversation
+    every turn with a grown prompt — turn ``t``'s prompt is turn ``t-1``'s
+    plus a fresh extension (standing in for the appended answer and tool
+    results an agent loop feeds back), so every turn's prompt has the
+    previous turn's as an exact prefix: the workload of the prefix index and
+    of speculative decoding. Request class = session (mod 3); arrivals are
+    staggered so turns of different sessions interleave; rids are sequential
+    in submission order."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=base_prompt)
+               .astype(np.int32) for _ in range(sessions)]
+    reqs, rid = [], 0
+    for t in range(turns):
+        for s in range(sessions):
+            if t > 0:
+                ext = rng.integers(
+                    0, cfg.vocab_size,
+                    size=int(grow_lens[(t + s) % len(grow_lens)])
+                ).astype(np.int32)
+                prompts[s] = np.concatenate([prompts[s], ext])
+            reqs.append(ServeRequest(
+                rid=rid, tokens=prompts[s].copy(),
+                params=_params(decode_lens[rid % len(decode_lens)],
+                               temperature, top_p, top_k, sample_seed, rid),
+                rclass=s % 3, arrival=t * turn_gap + 2 * s))
+            rid += 1
     return reqs

@@ -1,5 +1,7 @@
-"""Card-only tests of the port: each CUDA kernel against its plain version,
-and the engine on the card against its own one-shot oracle.
+"""Card-only tests of the port: each CUDA kernel against its plain version
+(paged decode, paged verify, flash), the verify kernel at Sq = 1 against the
+decode kernel, and the engine (plain and speculative) on the card against
+its own one-shot oracle.
 
 Marked ``cuda``; each test decides inside itself whether a card is visible
 and skips otherwise (never at import time). This file imports no JAX, so it
@@ -14,9 +16,11 @@ import torch
 from repro_torch import configs
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.paged_attention import (paged_attention,
-                                                 paged_attention_ref)
+                                                 paged_attention_ref,
+                                                 paged_attention_verify,
+                                                 paged_attention_verify_ref)
 from repro_torch.models import model
-from repro_torch.serve import api, traces
+from repro_torch.serve import api, spec, traces
 from repro_torch.serve import engine as eng_mod
 
 pytestmark = pytest.mark.cuda
@@ -66,6 +70,56 @@ def test_paged_kernel_matches_plain(card, b, h, hk, d, page, dtype, tol):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+def _verify_inputs(seed, b, sq, h, hk, d, page, maxp, dtype, device):
+    """Ragged first positions, one lane at a page boundary and one whose
+    last rows run past the table's capacity; a +-1e4 null page."""
+    rng = np.random.default_rng(seed)
+    num_pages = b * maxp + 1
+    q = torch.as_tensor(rng.standard_normal((b, sq, h, d)),
+                        dtype=torch.float32)
+    kp = torch.as_tensor(rng.standard_normal((num_pages, page, hk, d)),
+                         dtype=torch.float32)
+    vp = torch.as_tensor(rng.standard_normal((num_pages, page, hk, d)),
+                         dtype=torch.float32)
+    kp[0], vp[0] = 1e4, -1e4
+    pos = rng.integers(0, maxp * page - sq + 1, size=b).astype(np.int32)
+    pos[0] = page
+    pos[-1] = maxp * page - max(sq - 2, 1)
+    free = list(rng.permutation(np.arange(1, num_pages)))
+    table = np.zeros((b, maxp), np.int32)
+    for i in range(b):
+        for j in range(min(maxp, -(-(int(pos[i]) + sq) // page))):
+            table[i, j] = free.pop()
+    return (q.to(device, dtype), kp.to(device, dtype), vp.to(device, dtype),
+            torch.as_tensor(table, device=device),
+            torch.as_tensor(pos, device=device))
+
+
+@pytest.mark.parametrize("b,h,hk,d", [(3, 4, 4, 64), (8, 15, 5, 64),
+                                      (2, 8, 1, 128)])
+@pytest.mark.parametrize("sq", [1, 2, 5, 7])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+def test_verify_kernel_matches_plain(card, b, h, hk, d, sq, dtype, tol):
+    args = _verify_inputs(b * 10 + sq, b, sq, h, hk, d, 16, 6, dtype, card)
+    n0 = paged_attention_verify.launches
+    out = paged_attention_verify(*args)
+    torch.cuda.synchronize()
+    assert paged_attention_verify.launches == n0 + 1
+    ref = paged_attention_verify_ref(*args)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_kernel_sq1_is_the_decode_kernel(card, dtype):
+    q, kp, vp, table, pos = _verify_inputs(7, 8, 1, 15, 5, 64, 16, 6, dtype,
+                                           card)
+    out = paged_attention_verify(q, kp, vp, table, pos)
+    dec = paged_attention(q[:, 0].contiguous(), kp, vp, table, pos + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, 0], dec)
+
+
 @pytest.mark.parametrize("s", [1, 17, 128, 383])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
@@ -96,6 +150,31 @@ def test_engine_on_card_matches_oneshot(card):
                          device=card)
     eng.run(trace, max_ticks=400)
     assert len(eng.completed) == len(trace)
+    for req in eng.completed:
+        probe = api.ServeRequest(rid=req.rid, tokens=req.tokens,
+                                 params=req.params)
+        assert api.generate(params, cfg, probe, max_cache=96).tokens \
+            == req.out_tokens
+
+
+def test_spec_engine_on_card_matches_oneshot(card):
+    """Smoke-size fp32 spec engine with the kernels on the card: the verify
+    kernel runs, and every stream is the one-shot ``generate``'s."""
+    cfg = configs.get_config("smollm-360m").smoke()
+    params = spec.make_draft_friendly(
+        model.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                          device=card), cfg, 1)
+    trace = traces.agentic_trace(cfg, sessions=2, turns=3, base_prompt=16,
+                                 grow_lens=(4, 6), decode_lens=(6, 8),
+                                 turn_gap=2)
+    eng = eng_mod.Engine(params, cfg, eng_mod.EngineConfig(
+        num_slots=2, max_cache=96, prefill_chunk=8, spec_decode=4,
+        spec_draft_layers=1), device=card)
+    n0 = paged_attention_verify.launches
+    stats = eng.run(trace, max_ticks=400)
+    assert stats["completed"] == len(trace) and stats["spec_ticks"] > 0
+    assert paged_attention_verify.launches - n0 == \
+        cfg.num_layers * stats["spec_ticks"]
     for req in eng.completed:
         probe = api.ServeRequest(rid=req.rid, tokens=req.tokens,
                                  params=req.params)

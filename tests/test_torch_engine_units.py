@@ -157,9 +157,8 @@ class TestNanGuard:
         cfg, params = dense
         eng = engine.Engine(params, cfg, engine.EngineConfig(
             num_slots=2, max_cache=48, policy="fifo"), device="cpu")
-        # both fit one page: the corrupted lane's page, once freed, holds NaN
-        # V at its last decode position, which a later owner would read
-        # masked (0 * NaN) — the reference shares this (ROADMAP queue 3)
+        # both fit one page; the corrupted lane's page is scrubbed before it
+        # is freed (see test_recycled_page_of_a_corrupted_lane_is_scrubbed)
         a, b = _reqs(cfg, 2, prompt_lens=(6,), steps=(8, 8), stagger=0)
         eng.submit(a)
         eng.submit(b)
@@ -173,6 +172,40 @@ class TestNanGuard:
         transformer.map_block_caches(cfg, poison, eng.pool["layers"])
         stats = eng.run([])
         assert a.finish_reason == "corrupted" and stats["corrupted"] == 1
+        assert b.finish_reason == "length"
+        assert b.out_tokens == _oneshot(params, cfg, b, 48).tokens
+
+    @pytest.mark.parametrize("backend", ["kernel", "torch"])
+    def test_recycled_page_of_a_corrupted_lane_is_scrubbed(self, dense,
+                                                           backend):
+        """K and V of the corrupted lane's page are NaN. The healthy request
+        grows onto that recycled page past its first page and reads its
+        stale positions masked: without the scrub in ``_retire_corrupted``,
+        0 * NaN in the PV product poisons it too (the reference keeps this
+        fault)."""
+        cfg, params = dense
+        eng = engine.Engine(params, cfg, engine.EngineConfig(
+            num_slots=2, max_cache=48, policy="fifo", attn_backend=backend),
+            device="cpu")
+        a, b = _reqs(cfg, 2, prompt_lens=(6, 10), steps=(8, 30), stagger=0)
+        eng.submit(a)
+        eng.submit(b)
+        eng.step()
+        page = int(eng.alloc.table()[a.slot, 0])
+
+        def poison(kind, d):
+            d["k"][:, page] = float("nan")
+            d["v"][:, page] = float("nan")
+            return d
+
+        transformer.map_block_caches(cfg, poison, eng.pool["layers"])
+        later_pages = set()
+        while b.finish_reason is None:
+            eng.step()
+            if eng.slots[b.slot] is b:
+                later_pages.update(eng.alloc.owned(b.slot)[1:])
+        assert a.finish_reason == "corrupted" and len(eng.corrupted) == 1
+        assert page in later_pages, "the recycled page never reached b"
         assert b.finish_reason == "length"
         assert b.out_tokens == _oneshot(params, cfg, b, 48).tokens
 

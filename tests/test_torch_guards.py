@@ -116,11 +116,17 @@ class TestDevices:
         assert "not ported yet" in capsys.readouterr().err
 
     def test_spec_decode_waits_for_slice_2(self):
+        """Speculative decoding arrived with slice 2: a spec engine builds
+        on the CPU when asked, and still validates its draft depth."""
         from repro_torch import configs
         from repro_torch.models import model
         cfg = configs.get_config("smollm-360m").smoke()
         params = model.init_params(cfg, torch.Generator(), "cpu")
-        with pytest.raises(NotImplementedError, match="slice 2"):
+        eng = engine.Engine(params, cfg, engine.EngineConfig(
+            spec_decode=2, spec_draft_layers=1), device="cpu")
+        assert eng.stats()["spec_decode"] == 2
+        assert eng.device == torch.device("cpu")
+        with pytest.raises(ValueError, match="spec_draft_layers"):
             engine.Engine(params, cfg, engine.EngineConfig(spec_decode=2),
                           device="cpu")
 

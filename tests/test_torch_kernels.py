@@ -1,6 +1,7 @@
 """The port's kernel packages on the CPU: each kernel's plain PyTorch version
 against the JAX package's Pallas kernel (interpret mode) and its jnp oracle,
-and the wrappers' contract checks and CPU dispatch.
+and the wrappers' contract checks and CPU dispatch. The kernels: paged
+decode, the paged verify step of self-speculative decoding, flash attention.
 
 Inputs are drawn with numpy from a seed and handed to both packages.
 Tolerances (as in tests/test_kernels.py): paged 1e-5 fp32, flash 5e-5 fp32,
@@ -17,9 +18,15 @@ from repro.kernels.flash_attention import attention_ref as jax_attention_ref
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.paged_attention import paged_attention as jax_paged
 from repro.kernels.paged_attention import paged_attention_ref as jax_paged_ref
+from repro.kernels.paged_attention import \
+    paged_attention_verify as jax_verify
+from repro.kernels.paged_attention import \
+    paged_attention_verify_ref as jax_verify_ref
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.paged_attention import (paged_attention,
-                                                 paged_attention_ref)
+                                                 paged_attention_ref,
+                                                 paged_attention_verify,
+                                                 paged_attention_verify_ref)
 
 # smoke-size ops: one intra-op thread per test worker (the suite runs
 # several workers; torch's default of one thread per core oversubscribes)
@@ -92,6 +99,81 @@ def test_paged_ignores_dirty_null_page():
     assert torch.equal(dirty, clean)
 
 
+def verify_fixture(seed, b, sq, h, hk, d, page, maxp):
+    """Verify-step inputs: ragged first positions (one lane at a page
+    boundary, one whose last rows run past the table's capacity), every page
+    a row can reach mapped, the rest on a +-1e4 null page."""
+    rng = np.random.default_rng(seed)
+    num_pages = b * maxp + 1
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    kp = rng.standard_normal((num_pages, page, hk, d)).astype(np.float32)
+    vp = rng.standard_normal((num_pages, page, hk, d)).astype(np.float32)
+    kp[0], vp[0] = 1e4, -1e4
+    pos = rng.integers(0, maxp * page - sq + 1, size=b).astype(np.int32)
+    pos[0] = page                               # first row opens a page
+    pos[-1] = maxp * page - max(sq - 2, 1)      # rows past the capacity
+    free = list(rng.permutation(np.arange(1, num_pages)))
+    table = np.zeros((b, maxp), np.int32)
+    for i in range(b):
+        for j in range(min(maxp, -(-(int(pos[i]) + sq) // page))):
+            table[i, j] = free.pop()
+    return q, kp, vp, table, pos
+
+
+@pytest.mark.parametrize("b,h,hk,d", [
+    (3, 4, 4, 32),      # MHA
+    (2, 15, 5, 64),     # GQA 3:1 (smollm-360m's ratio)
+    (2, 8, 1, 128),     # MQA
+])
+@pytest.mark.parametrize("sq", [1, 3, 5])
+def test_verify_plain_matches_jax(b, h, hk, d, sq):
+    """fp32, tolerance 1e-5 against the interpret-mode Pallas verify kernel
+    and the JAX oracle; the wrapper on CPU tensors is the plain version."""
+    arrs = verify_fixture(b * 7 + sq, b, sq, h, hk, d, 8, 4)
+    out = paged_attention_verify_ref(*_t(*arrs))
+    assert torch.equal(paged_attention_verify(*_t(*arrs)), out)
+    jarrs = [jnp.asarray(a) for a in arrs]
+    np.testing.assert_allclose(out.numpy(), np.asarray(jax_verify_ref(*jarrs)),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out.numpy(),
+                               np.asarray(jax_verify(*jarrs, interpret=True)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_verify_plain_bf16_matches_jax():
+    """bf16 inputs, fp32 math: tolerance 5e-2."""
+    q, kp, vp, table, pos = verify_fixture(11, 2, 5, 15, 5, 64, 8, 4)
+    kp[0], vp[0] = 0.0, 0.0
+    tq, tk, tv = (torch.as_tensor(a).to(torch.bfloat16) for a in (q, kp, vp))
+    out = paged_attention_verify_ref(tq, tk, tv, torch.as_tensor(table),
+                                     torch.as_tensor(pos)).float().numpy()
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, kp, vp))
+    ref = jax_verify_ref(jq, jk, jv, jnp.asarray(table), jnp.asarray(pos))
+    np.testing.assert_allclose(out, np.asarray(ref.astype(jnp.float32)),
+                               rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("sq", [1, 5])
+def test_verify_rows_are_decode_rows(sq):
+    """Row ``r`` of the verify step is the decode step at lengths
+    ``pos + r + 1`` (Sq = 1: the decode step itself)."""
+    q, kp, vp, table, pos = _t(*verify_fixture(3, 3, sq, 15, 5, 64, 8, 4))
+    out = paged_attention_verify_ref(q, kp, vp, table, pos)
+    for r in range(sq):
+        dec = paged_attention_ref(q[:, r].contiguous(), kp, vp, table,
+                                  pos + r + 1)
+        np.testing.assert_allclose(out[:, r].numpy(), dec.numpy(),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_verify_ignores_dirty_null_page():
+    q, kp, vp, table, pos = verify_fixture(5, 2, 3, 4, 2, 32, 8, 3)
+    dirty = paged_attention_verify(*_t(q, kp, vp, table, pos))
+    kp[0], vp[0] = 0.0, 0.0
+    assert torch.equal(dirty, paged_attention_verify(*_t(q, kp, vp, table,
+                                                         pos)))
+
+
 @pytest.mark.parametrize("b,h,hk,s,d", [
     (2, 4, 2, 256, 64),     # GQA, whole 128-blocks
     (1, 15, 5, 128, 64),    # smollm-360m width
@@ -160,6 +242,25 @@ class TestWrappers:
                             kp, vp, table, lengths)
         with pytest.raises(ValueError, match="device"):
             paged_attention(q.to("meta"), kp, vp, table, lengths)
+
+    def test_verify_counts_no_launch_and_checks_contract(self):
+        q, kp, vp, table, pos = _t(*verify_fixture(0, 2, 3, 4, 2, 32, 8, 3))
+        n0 = paged_attention_verify.launches
+        paged_attention_verify(q, kp, vp, table, pos)
+        assert paged_attention_verify.launches == n0
+        with pytest.raises(ValueError, match="bad shapes"):
+            paged_attention_verify(q[:, 0], kp, vp, table, pos)
+        with pytest.raises(ValueError, match="int32"):
+            paged_attention_verify(q, kp, vp, table, pos.long())
+        with pytest.raises(TypeError):
+            paged_attention_verify(q.half(), kp.half(), vp.half(), table, pos)
+        with pytest.raises(ValueError, match="contiguous"):
+            paged_attention_verify(q.transpose(1, 2).contiguous()
+                                   .transpose(1, 2), kp, vp, table, pos)
+        with pytest.raises(ValueError, match="shared memory"):
+            big = torch.zeros(2, 64, 32, 128)
+            pages = torch.zeros(3, 64, 8, 128)
+            paged_attention_verify(big, pages, pages, table, pos)
 
     def test_flash_rejects_what_the_kernel_cannot_take(self):
         x = torch.randn(1, 4, 9, 32)

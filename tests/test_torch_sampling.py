@@ -219,8 +219,23 @@ class TestSamplingParams:
 
     @pytest.mark.parametrize("kw", [dict(n=2), dict(best_of=3)])
     def test_slot_groups_wait_for_slice_2(self, kw):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            api.SamplingParams(**kw)
+        """Slot groups arrived with slice 2: ``n=2`` and ``best_of=3`` are
+        accepted, size their group as the reference does, and the one-shot
+        facade assembles the parent from its lanes."""
+        sp = api.SamplingParams(temperature=0.8, seed=2, max_new_tokens=3,
+                                **kw)
+        ref = japi.SamplingParams(temperature=0.8, seed=2, max_new_tokens=3,
+                                  **kw)
+        assert sp.group_size == ref.group_size == max(kw.values())
+        req = api.ServeRequest(rid=5, tokens=np.arange(6, dtype=np.int32),
+                               params=sp)
+        params = model.init_params(configs.get_config("smollm-360m").smoke(),
+                                   torch.Generator().manual_seed(0), "cpu")
+        out = api.generate(params, configs.get_config("smollm-360m").smoke(),
+                           req, max_cache=16)
+        assert out.rid == 5 and out.finished
+        assert len(out.group_outputs) == sp.n
+        assert out.tokens == out.group_outputs[0].tokens
 
     def test_spec_for_rows(self):
         ps = [api.SamplingParams(), api.SamplingParams(temperature=0.7,
