@@ -14,12 +14,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    first positions (page boundaries, rows past the table's capacity), plus
    MHA and MQA, and at Sq = 1 bitwise the decode kernel at lengths = pos + 1;
    flash attention at H=15, Hkv=5, D=64 for S in {1, 17, 128, 383, 1000},
-   causal and not. Tolerances: 1e-5 (paged, verify) / 5e-5 (flash) in fp32,
-   5e-2 in bf16. Then each kernel, its plain version and (flash only)
-   PyTorch's SDPA are timed with CUDA events at main-path shapes, beside the
-   bound from the bytes and flops those shapes need (verify: B=8, Sq=5 at
-   the spec trace's positions; no single PyTorch call gathers pages, so
-   paged decode and verify have no library time).
+   causal and not; the MoE grouped matmul at granite-moe-3b-a800m's widths
+   (E, C, D, F) = (40, 64, 1536, 512), (40, 64, 512, 1536), (40, 320, 1536,
+   512), (40, 252, 1536, 512) and at (3, 37, 96, 80), with seeded group
+   sizes that include 0 and C and live values in the rows past each group.
+   Tolerances: 1e-5 (paged, verify) / 5e-5 (flash) in fp32, 5e-2 in bf16;
+   grouped matmul allclose 2e-4 fp32 / 2e-1 bf16 with its dead rows exactly
+   0.0. Then each kernel, its plain version and a library call (SDPA for
+   flash, ``torch.bmm`` for the grouped matmul) are timed with CUDA events at
+   main-path shapes, beside the bound from the bytes and flops those shapes
+   need (verify: B=8, Sq=5 at the spec trace's positions; the grouped matmul
+   at the decode tick's gate / up shape with one tick's group sizes; no
+   single PyTorch call gathers pages, so paged decode and verify have no
+   library time).
 3. Engine: smollm-360m at its full published config (32 layers, d_model
    960, 15/5 heads, head_dim 64, d_ff 2560, vocab 49,152, bf16; random
    weights from ``--seed``) serves 16 requests of ``synthetic_trace``
@@ -35,8 +42,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    that tolerance. The same comparison runs in fp32 at full width on five
    requests within 1e-3. ``torch.profiler`` traces ten decode ticks with all
    eight slots busy (device time by kernel, the device's idle share). A
-   smoke-size fp32 engine must also emit exactly its one-shot ``generate``
-   tokens.
+   smoke-size fp32 engine (smollm-360m, and granite-moe-3b-a800m with a
+   seeded nonzero router bias) must also emit exactly its one-shot
+   ``generate`` tokens, with logits within 1e-3.
 4. Speculative decoding: full-width smollm-360m (bf16, ``--seed`` weights)
    made draft-friendly at depth 8 serves a 12-request ``agentic_trace``
    (4 sessions x 3 turns, 32 / 64 new tokens, greedy) on 8 slots with
@@ -54,8 +62,28 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    lane must agree (same rule) with the same member served alone.
    ``torch.profiler`` traces ten spec ticks and ten plain ticks with all
    eight slots of the spec trace busy (one-shot prefill, 128 new tokens).
+6. MoE serving: granite-moe-3b-a800m at its full published config (32
+   layers, d_model 1536, 24/8 heads, 40 experts top-8, expert d_ff 512,
+   vocab 49,155, capacity factor 1.25, bf16; random weights from
+   ``--seed``; zero router bias) serves 12 requests of ``synthetic_trace``
+   (prompts 100 / 250 / 400, 32 new tokens, two seeded lanes at temperature
+   0.8) on 8 slots with one-shot prefill, on the kernel and the torch
+   backends. Every request must finish with its budget; the grouped matmul
+   must have launched exactly 3 x 32 x (decode ticks + prefills), paged
+   decode 32 x decode ticks and flash 32 x prefills. The same trace on the
+   same weights in fp32 must agree between the two backends by the rule of
+   phase 3 at 1e-3; in bf16 (where routing flips at near-tied experts move
+   the logits of any two roundings beyond the 1e-1 rule, see
+   ``MOE_BF16_SLACK``) the kernel run must be within that rule of the fp32
+   run or no farther from it than the torch run is, within 25%. It prints
+   ms per tick, decode tok/s,
+   peak memory, the mean expert load CV and the prefill drop fraction, and
+   a ``torch.profiler`` window of ten ticks. Then four greedy requests are
+   served on the same weights made draft-friendly at depth 8, with
+   ``spec_decode=4`` and without: verify runs the grouped matmul at C = 320,
+   and the streams must agree by the same rule.
 
-Phases 3-5 each set every launch count to 0 just before they serve and read
+Phases 3-6 each set every launch count to 0 just before they serve and read
 the counts just after. All phases run at full depth.
 
 The second-to-last lines are one JSON object ``{"kernels": [...]}`` and the
@@ -79,7 +107,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"paged": {"float32": 1e-5, "bfloat16": 5e-2},
-       "flash": {"float32": 5e-5, "bfloat16": 5e-2}}
+       "flash": {"float32": 5e-5, "bfloat16": 5e-2},
+       "gmm": {"float32": 2e-4, "bfloat16": 2e-1}}
 # (rtol, atol) on logits. bf16 at full depth: the torch backend rounds the
 # scores and the probabilities to bf16 before their products (the JAX
 # package's _sdpa), the kernels keep both in fp32 (as the TPU kernels do);
@@ -87,6 +116,18 @@ TOL = {"paged": {"float32": 1e-5, "bfloat16": 5e-2},
 # while the same comparison in fp32 agrees to ~1e-5.
 BF16_TOL = (1e-1, 1e-1)
 FP32_TOL = (1e-3, 1e-3)
+# MoE in bf16: routing is discontinuous, so any change of rounding flips
+# near-tied expert choices and moves granite-moe-3b-a800m's logits by ~2x
+# BF16_TOL — the JAX package's own arithmetic (the torch backend) as much as
+# the kernels, and swapping only the expert GEMM (cuBLAS bf16 einsum for the
+# grouped-matmul kernel, bitwise equal in fp32) as well (on an H100 80GB
+# HBM3 at 700 W, four bf16 arrangements of kernels and einsums all landed
+# 0.24-0.26 from fp32 arithmetic, 2.0-2.2x the allclose bound). The MoE phase
+# therefore holds kernel-vs-torch agreement in fp32 at full width (FP32_TOL)
+# and, in bf16, holds the kernel run within the bf16 rule of fp32 arithmetic
+# or no farther from it than the torch run, with this slack (the four
+# arrangements spread by ~10%).
+MOE_BF16_SLACK = 1.25
 
 
 def fail(msg: str):
@@ -343,6 +384,91 @@ def time_flash(torch, gen, flash_attention, attention_ref) -> dict:
                       "causal": True, "dtype": "bfloat16"}}
 
 
+# (E, C, D, F): granite-moe-3b-a800m's gate/up and down products at decode
+# (8 slots x top-8, dropless: C = 64), the gate/up product at verify (8 x 5
+# rows: C = 320) and at a 1000-token prefill (cf 1.25: C = 252), and odd sizes
+GMM_SHAPES = [(40, 64, 1536, 512), (40, 64, 512, 1536), (40, 320, 1536, 512),
+              (40, 252, 1536, 512), (3, 37, 96, 80)]
+
+
+def decode_group_sizes(torch, gen, e: int, tokens: int, k: int):
+    """Group sizes of one decode tick: each of ``tokens`` lanes routes to
+    ``k`` distinct experts, drawn uniformly from ``gen``."""
+    picks = torch.rand(tokens, e, generator=gen, device="cuda").argsort(-1)
+    return torch.bincount(picks[:, :k].reshape(-1), minlength=e).to(
+        torch.int32)
+
+
+def check_gmm(torch, gen, moe_gmm, gmm_ref) -> list:
+    """Every shape in fp32 and bf16, seeded group sizes with 0 and C, rows
+    past each group holding live values: allclose to the plain version at
+    the tolerances of tests/test_kernels.py, dead rows and empty groups
+    exactly 0.0."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        tol = TOL["gmm"][name]
+        for (e, c, d, f) in GMM_SHAPES:
+            x = torch.randn(e, c, d, generator=gen, device="cuda").to(dtype)
+            w = (torch.randn(e, d, f, generator=gen, device="cuda")
+                 / d ** 0.5).to(dtype)
+            sizes = torch.randint(0, c + 1, (e,), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+            sizes[0], sizes[-1] = 0, c
+            out = moe_gmm(x, w, sizes)
+            torch.cuda.synchronize()
+            ref = gmm_ref(x, w, sizes)
+            diff = (out.float() - ref.float()).abs()
+            err = diff.max().item()
+            over = (diff / (tol + tol * ref.float().abs())).max().item()
+            check(over <= 1.0, f"gmm {name} {(e, c, d, f)} err {err} "
+                  f"({over:.2f}x the allclose bound)")
+            dead = torch.arange(c, device="cuda")[None, :] >= sizes[:, None]
+            check(bool((out[dead] == 0).all()),
+                  f"gmm {name} {(e, c, d, f)}: a dead row is not exactly 0")
+            cases.append({"shape": [e, c, d, f], "dtype": name,
+                          "max_abs_err": err, "dead_rows": int(dead.sum())})
+    return cases
+
+
+def time_gmm(torch, gen, moe_gmm, gmm_ref) -> dict:
+    """Decode shape of the gate / up product (E=40, C=64, D=1536, F=512,
+    bf16) with one decode tick's group sizes (8 lanes x top-8 over 40
+    experts). Four weight copies (252 MB) rotate so the weights come from
+    HBM, as across the 32 layers of a tick. ``torch.bmm`` on the same
+    (E, C, D) x (E, D, F) computes every row of every expert."""
+    e, c, d, f = 40, 64, 1536, 512
+    sizes = decode_group_sizes(torch, gen, e, 8, 8)
+    x = torch.randn(e, c, d, generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.where(torch.arange(c, device="cuda")[None, :, None]
+                    < sizes[:, None, None], x, torch.zeros((), device="cuda",
+                                                           dtype=x.dtype))
+    ws = [(torch.randn(e, d, f, generator=gen, device="cuda") / d ** 0.5)
+          .to(torch.bfloat16) for _ in range(4)]
+    it = iter(range(10 ** 9))
+    ms = cuda_ms(torch, lambda: moe_gmm(x, ws[next(it) % 4], sizes))
+    plain_ms = cuda_ms(torch, lambda: gmm_ref(x, ws[next(it) % 4], sizes),
+                       iters=20)
+    lib_ms = cuda_ms(torch, lambda: torch.bmm(x, ws[next(it) % 4]))
+    err = (moe_gmm(x, ws[0], sizes).float()
+           - gmm_ref(x, ws[0], sizes).float()).abs().max().item()
+    es = 2
+    live = sizes.cpu().tolist()
+    rows, experts = sum(live), sum(1 for n in live if n)
+    # each live expert's weights, the live rows of x and group_sizes read
+    # once; the whole (E, C, F) output written once (its dead rows are zeros
+    # the contract requires)
+    nbytes = experts * d * f * es + rows * d * es + e * c * f * es + e * 4
+    flops = 2 * rows * d * f
+    bound_ms, by = bound(nbytes, flops, "bfloat16")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
+            "shape": {"E": e, "C": c, "D": d, "F": f, "dtype": "bfloat16",
+                      "group_sizes": live, "live_rows": rows,
+                      "live_experts": experts,
+                      "library": "torch.bmm over all C rows"}}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the engine on smollm-360m
 # ---------------------------------------------------------------------------
@@ -377,7 +503,7 @@ def serve(torch, eng_mod, params, cfg, trace, backend: str):
 
 
 def profile_decode(torch, eng_mod, params, cfg, reqs, ecfg,
-                   ticks: int = 10) -> dict:
+                   ticks: int = 10, router_bias=None) -> dict:
     """Where a decode tick's time goes: fill all 8 slots of an engine built
     from ``ecfg`` with ``reqs``, warm up, then trace ``ticks`` ticks (plain
     or spec, whichever ``ecfg`` runs) with ``torch.profiler``. Device busy
@@ -386,7 +512,8 @@ def profile_decode(torch, eng_mod, params, cfg, reqs, ecfg,
     idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    eng = eng_mod.Engine(params, cfg, ecfg, device="cuda")
+    eng = eng_mod.Engine(params, cfg, ecfg, device="cuda",
+                         router_bias=router_bias)
     for req in reqs[:eng.ecfg.num_slots]:
         eng.submit(dataclasses.replace(req, arrival=0, out_tokens=[],
                                        out_logits=[]))
@@ -410,7 +537,8 @@ def profile_decode(torch, eng_mod, params, cfg, reqs, ecfg,
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     ours = {name: sum(r[0] for r in rows if name in r[2]) / ticks
-            for name in ("paged_decode_kernel", "paged_verify_kernel")}
+            for name in ("paged_decode_kernel", "paged_verify_kernel",
+                         "moe_gmm_kernel")}
     return {"ticks": ticks, "spec_ticks": eng.spec_ticks,
             "wall_ms_per_tick": wall_ms / ticks,
             "device_ms_per_tick": busy / ticks,
@@ -509,27 +637,41 @@ def agreement(torch, model_lib, api, kernel_reqs, torch_reqs, rtol: float,
 
 
 def smoke_oneshot_parity(torch, configs, model_lib, eng_mod, api, traces,
-                         seed: int) -> int:
+                         seed: int, arch: str) -> dict:
     """Smoke-size fp32 engine (kernels on the card) against the port's own
-    one-shot ``generate``: token-identical."""
-    cfg = configs.get_config("smollm-360m").smoke()
+    one-shot ``generate``: token-identical, logits within 1e-3 (an MoE arch
+    with a seeded nonzero router bias)."""
+    cfg = configs.get_config(arch).smoke()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = model_lib.init_params(cfg, gen, device="cuda")
+    bias = None
+    if cfg.num_experts:
+        bias = 0.5 * torch.randn(cfg.num_layers, cfg.num_experts,
+                                 generator=gen, device="cuda")
     trace = traces.synthetic_trace(cfg, num_requests=6, seed=seed,
                                    temperature=0.8, sample_seed=seed)
-    eng = eng_mod.Engine(params, cfg, eng_mod.EngineConfig(num_slots=3,
-                                                           max_cache=96),
-                         device="cuda")
+    eng = eng_mod.Engine(params, cfg, eng_mod.EngineConfig(
+        num_slots=3, max_cache=96, capture_logits=True), device="cuda",
+        router_bias=bias)
     eng.run(trace, max_ticks=500)
-    check(len(eng.completed) == len(trace), "smoke engine left requests")
+    check(len(eng.completed) == len(trace), f"{arch} smoke engine left "
+          f"requests")
+    worst = 0.0
     for req in eng.completed:
         probe = api.ServeRequest(rid=req.rid, tokens=req.tokens,
                                  params=req.params)
-        out = api.generate(params, cfg, probe, max_cache=96)
+        out = api.generate(params, cfg, probe, max_cache=96,
+                           capture_logits=True, router_bias=bias)
         check(out.tokens == req.out_tokens,
-              f"smoke request {req.rid}: engine {req.out_tokens} != "
+              f"{arch} smoke request {req.rid}: engine {req.out_tokens} != "
               f"one-shot {out.tokens}")
-    return len(eng.completed)
+        for la, lb in zip(req.out_logits, probe.out_logits):
+            check(bool((np.abs(la - lb) <= tol_at(lb, *FP32_TOL)).all()),
+                  f"{arch} smoke request {req.rid}: logits off one-shot by "
+                  f"{float(np.abs(la - lb).max())}")
+            worst = max(worst, float(np.abs(la - lb).max()))
+    return {"arch": arch, "requests": len(eng.completed),
+            "max_logits_diff": worst}
 
 
 # ---------------------------------------------------------------------------
@@ -703,6 +845,204 @@ def group_phase(torch, eng_mod, groups, model_lib, api, params, cfg,
                                    "atol": BF16_TOL[1]}}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: MoE serving on granite-moe-3b-a800m
+# ---------------------------------------------------------------------------
+MOE_ARCH = "granite-moe-3b-a800m"
+
+
+def moe_trace(traces, cfg, seed: int, num_requests: int = 12):
+    """Prompts of 100 / 250 / 400 tokens, 32 new tokens each, greedy but
+    for two seeded lanes at temperature 0.8."""
+    trace = traces.synthetic_trace(cfg, num_requests=num_requests, seed=seed,
+                                   prompt_lens=(100, 250, 400),
+                                   heavy_frac=0.0, light_tokens=32)
+    for req in trace:
+        kw = dict(max_new_tokens=32)
+        if req.rid in (3, 10):
+            kw["temperature"] = 0.8
+        req.params = dataclasses.replace(req.params, **kw)
+    return trace
+
+
+def moe_config(eng_mod, backend: str, spec: bool = False,
+               capture_logits: bool = True):
+    return eng_mod.EngineConfig(
+        num_slots=8, page_size=16, max_cache=1024, prefill_chunk=0,
+        num_classes=3, latency_budget=512.0, attn_backend=backend,
+        capture_logits=capture_logits, spec_decode=SPEC_K if spec else 0,
+        spec_draft_layers=SPEC_DEPTH if spec else 0)
+
+
+class MoEStatsRecorder:
+    """Keeps every ``moe_ffn`` call's ``MoEStats`` (device tensors, read
+    once at the end) by wrapping the module function the transformer calls;
+    one-token calls are decode, draft or verify rows, longer ones prefill."""
+
+    def __init__(self, moe_mod):
+        self.moe_mod, self.calls = moe_mod, []
+
+    def __enter__(self):
+        ffn = self.inner = self.moe_mod.moe_ffn
+
+        def recording(params, x, cfg, bias, backend="kernel"):
+            y, stats = ffn(params, x, cfg, bias, backend=backend)
+            self.calls.append((x.shape[1], x.shape[0] * x.shape[1], stats))
+            return y, stats
+
+        self.moe_mod.moe_ffn = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe_mod.moe_ffn = self.inner
+
+    def summary(self, torch, router) -> dict:
+        out = {}
+        for kind, want in (("prefill", lambda s: s > 1),
+                           ("decode", lambda s: s == 1)):
+            calls = [(t, st) for s, t, st in self.calls if want(s)]
+            if not calls:
+                continue
+            cv = torch.stack([router.load_cv(st.load_frac)
+                              for _, st in calls]).cpu().numpy()
+            drop = torch.stack([st.drop_frac for _, st in calls]).cpu().numpy()
+            toks = np.asarray([t for t, _ in calls], np.float64)
+            out[kind] = {"calls": len(calls),
+                         "mean_load_cv": float(cv.mean()),
+                         "drop_frac_token_weighted":
+                         float((drop * toks).sum() / toks.sum()),
+                         "max_drop_frac": float(drop.max())}
+        return out
+
+
+def moe_phase(torch, configs, eng_mod, traces, model_lib, api, moe_mod,
+              router, spec_mod, seed: int, counters: dict) -> tuple:
+    """Phase 6 and the MoE spec run. Returns (report, moe_gmm launches on
+    the kernel-backend serving run)."""
+    cfg = configs.get_config(MOE_ARCH)
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    bias = torch.zeros((cfg.num_layers, cfg.num_experts), device="cuda")
+    nparams = model_lib.param_count(params)
+    print(f"{MOE_ARCH}: {nparams / 1e9:.3f}B params "
+          f"({model_lib.active_param_count(params, cfg) / 1e9:.3f}B active), "
+          f"{cfg.num_layers} layers, {cfg.num_experts} experts top-"
+          f"{cfg.experts_per_token}, dtype {cfg.dtype}")
+    runs = {}
+    for backend in ("kernel", "torch"):
+        trace = moe_trace(traces, cfg, seed)
+        eng = eng_mod.Engine(params, cfg, moe_config(eng_mod, backend),
+                             device="cuda", router_bias=bias)
+        torch.cuda.reset_peak_memory_stats()
+        with MoEStatsRecorder(moe_mod) as rec:
+            stats, wall, n = run_counted(
+                torch, counters, lambda: eng.run(trace, max_ticks=2000))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(stats["completed"] == len(trace) and not stats["shed"]
+              and not stats["rejected"] and not stats["corrupted"],
+              f"moe {backend}: not every request completed: {stats}")
+        check_budgets(eng, f"moe {backend}")
+        calls = stats["decode_ticks"] + stats["prefills"]
+        if backend == "kernel":
+            want = {"moe_gmm": 3 * cfg.num_layers * calls,
+                    "paged_attention": cfg.num_layers * stats["decode_ticks"],
+                    "flash_attention": cfg.num_layers * stats["prefills"],
+                    "paged_attention_verify": 0}
+        else:
+            want = {name: 0 for name in counters}
+        check(n == want, f"moe {backend} launches {n} != {want}")
+        runs[backend] = (eng, stats, wall, n, peak, rec.summary(torch, router))
+    eng, stats, wall, n, peak, routing = runs["kernel"]
+    agree = agreement(torch, model_lib, api, eng.completed,
+                      runs["torch"][0].completed, *BF16_TOL)
+    # the same weights and trace in fp32 arithmetic on both backends: here
+    # the kernels must compute the reference's function (see MOE_BF16_SLACK)
+    import copy
+    up = copy.deepcopy(params).float()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    exact = {}
+    for backend in ("kernel", "torch"):
+        e32 = eng_mod.Engine(up, cfg32, moe_config(eng_mod, backend),
+                             device="cuda", router_bias=bias)
+        t32 = moe_trace(traces, cfg32, seed)
+        st32 = e32.run(t32, max_ticks=2000)
+        check(st32["completed"] == len(t32), f"moe fp32 {backend}: {st32}")
+        check_budgets(e32, f"moe fp32 {backend}")
+        exact[backend] = e32.completed
+    del up
+    agree32 = agreement(torch, model_lib, api, exact["kernel"],
+                        exact["torch"], *FP32_TOL)
+    check(not agree32["violations"], f"moe kernel and torch runs disagree "
+          f"in fp32: {agree32['first_violations']}")
+    vs_exact = {name: agreement(torch, model_lib, api, runs[name][0].completed,
+                                exact["torch"], *BF16_TOL)
+                for name in ("kernel", "torch")}
+    ratio = {name: r["max_diff_over_tol"] for name, r in vs_exact.items()}
+    check(ratio["kernel"] <= max(1.0, MOE_BF16_SLACK * ratio["torch"]),
+          f"moe bf16 kernel run is farther from fp32 arithmetic than the "
+          f"torch run: {ratio}")
+    report = {"kernel": {**run_summary(stats, wall), "prefills":
+                         stats["prefills"], "launches": n,
+                         "peak_mem_gb": peak, "routing": routing},
+              "torch": {**run_summary(runs["torch"][1], runs["torch"][2]),
+                        "peak_mem_gb": runs["torch"][4]},
+              "agreement_bf16": {**agree, "rtol": BF16_TOL[0],
+                                 "atol": BF16_TOL[1]},
+              "agreement_fp32": {**agree32, "rtol": FP32_TOL[0],
+                                 "atol": FP32_TOL[1]},
+              "bf16_vs_fp32": {name: {k: r[k] for k in (
+                  "max_logits_diff", "max_diff_over_tol", "violations")}
+                  for name, r in vs_exact.items()},
+              "bf16_slack": MOE_BF16_SLACK}
+    del exact
+    report["profile"] = profile_decode(
+        torch, eng_mod, params, cfg, moe_trace(traces, cfg, seed),
+        moe_config(eng_mod, "kernel", capture_logits=False),
+        router_bias=bias)
+    gmm_n = n["moe_gmm"]
+    del runs, eng
+
+    # MoE spec run: four greedy requests, k = 4, draft depth 8, on weights
+    # made draft-friendly; verify runs the grouped matmul at C = 320
+    drafty = spec_mod.make_draft_friendly(params, cfg, SPEC_DEPTH)
+    del params
+    greedy = [r for r in moe_trace(traces, cfg, seed)
+              if r.params.is_greedy][:4]
+    spec_runs = {}
+    for spec in (True, False):
+        reqs = [dataclasses.replace(r, arrival=0, out_tokens=[],
+                                    out_logits=[]) for r in greedy]
+        eng = eng_mod.Engine(drafty, cfg, moe_config(eng_mod, "kernel", spec),
+                             device="cuda", router_bias=bias)
+        st, w, cnt = run_counted(torch, counters,
+                                 lambda: eng.run(reqs, max_ticks=500))
+        check(st["completed"] == len(reqs), f"moe spec={spec}: {st}")
+        check_budgets(eng, f"moe spec={spec}")
+        spec_runs[spec] = (eng, st, w, cnt)
+    eng, st, w, cnt = spec_runs[True]
+    check(st["spec_ticks"] > 0, "the MoE spec run ran no spec tick")
+    drafts = SPEC_DEPTH * SPEC_K * st["spec_ticks"]
+    want = {"paged_attention_verify": cfg.num_layers * st["spec_ticks"],
+            "paged_attention": cfg.num_layers * st["decode_ticks"] + drafts,
+            "flash_attention": cfg.num_layers * st["prefills"],
+            "moe_gmm": 3 * (cfg.num_layers * (st["decode_ticks"]
+                                              + st["prefills"]
+                                              + st["spec_ticks"]) + drafts)}
+    check(cnt == want, f"moe spec run launches {cnt} != {want}")
+    spec_agree = agreement(torch, model_lib, api, eng.completed,
+                           spec_runs[False][0].completed, *BF16_TOL)
+    check(not spec_agree["violations"], f"moe spec and non-spec streams "
+          f"disagree: {spec_agree['first_violations']}")
+    report["spec"] = {"spec": {**run_summary(st, w), "launches": cnt},
+                      "non_spec": {**run_summary(spec_runs[False][1],
+                                                 spec_runs[False][2]),
+                                   "launches": spec_runs[False][3]},
+                      "agreement": {**spec_agree, "rtol": BF16_TOL[0],
+                                    "atol": BF16_TOL[1]},
+                      "k": SPEC_K, "draft_layers": SPEC_DEPTH}
+    return report, gmm_n
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="on-card smoke of the port")
     ap.add_argument("--seed", type=int, default=0)
@@ -716,18 +1056,21 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch import configs
     from repro_torch.kernels import _build
+    from repro_torch.core import router
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+    from repro_torch.kernels.moe_gmm import gmm_ref, moe_gmm
     from repro_torch.kernels.paged_attention import (
         paged_attention, paged_attention_ref, paged_attention_verify,
         paged_attention_verify_ref)
     from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_mod
     from repro_torch.serve import api, groups, traces
     from repro_torch.serve import engine as eng_mod
     from repro_torch.serve import spec as spec_mod
     counters = {"paged_attention": paged_attention,
                 "paged_attention_verify": paged_attention_verify,
-                "flash_attention": flash_attention}
+                "flash_attention": flash_attention, "moe_gmm": moe_gmm}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -753,9 +1096,11 @@ def main() -> int:
     verify_cases = check_verify(torch, gen, paged_attention_verify,
                                 paged_attention_verify_ref, paged_attention)
     flash_cases = check_flash(torch, gen, flash_attention, attention_ref)
+    gmm_cases = check_gmm(torch, gen, moe_gmm, gmm_ref)
     print("kernel checks: " + json.dumps({"paged": paged_cases,
                                           "verify": verify_cases,
-                                          "flash": flash_cases}))
+                                          "flash": flash_cases,
+                                          "moe_gmm": gmm_cases}))
     cfg = configs.get_config("smollm-360m")
     # verify timing positions: the spec trace's first 8 requests, 16 tokens
     # into their decode
@@ -765,11 +1110,12 @@ def main() -> int:
     verify_t = time_verify(torch, gen, paged_attention_verify,
                            paged_attention_verify_ref, positions)
     flash_t = time_flash(torch, gen, flash_attention, attention_ref)
+    gmm_t = time_gmm(torch, gen, moe_gmm, gmm_ref)
     print("kernel timing shapes: " + json.dumps(
         {"paged_attention": paged_t["shape"],
          "paged_attention_verify": {**verify_t["shape"],
                                     "library": verify_t["library_note"]},
-         "flash_attention": flash_t["shape"]}))
+         "flash_attention": flash_t["shape"], "moe_gmm": gmm_t["shape"]}))
 
     # -- phase 3: the engine on smollm-360m -----------------------------------
     params = model_lib.init_params(
@@ -851,9 +1197,10 @@ def main() -> int:
         check(not res["violations"], f"{name} agreement with the torch "
               f"backend failed: {res['first_violations']}")
 
-    n_smoke = smoke_oneshot_parity(torch, configs, model_lib, eng_mod, api,
-                                   traces, args.seed)
-    print(f"smoke engine == one-shot generate on {n_smoke} requests")
+    for arch in ("smollm-360m", MOE_ARCH):
+        print("smoke engine == one-shot generate (fp32): " + json.dumps(
+            smoke_oneshot_parity(torch, configs, model_lib, eng_mod, api,
+                                 traces, args.seed, arch)))
 
     # -- phases 4 and 5: speculative decoding and slot groups -----------------
     params = model_lib.init_params(
@@ -878,6 +1225,11 @@ def main() -> int:
     print("slot groups: " + json.dumps(group_rep))
     del params
 
+    # -- phase 6: MoE serving on granite-moe-3b-a800m -------------------------
+    moe_rep, gmm_n = moe_phase(torch, configs, eng_mod, traces, model_lib, api,
+                               moe_mod, router, spec_mod, args.seed, counters)
+    print("moe serving: " + json.dumps(moe_rep))
+
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -895,6 +1247,12 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
          "launches": flash_n, **{k: flash_t[k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}},
+        {"name": "moe_gmm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
+         "replaces": "src/repro/kernels/moe_gmm/kernel.py:45",
+         "launches": gmm_n, **{k: gmm_t[k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")}},
     ]

@@ -2,9 +2,9 @@
 
 The same ten architectures as the JAX package's registry. ``input_specs``
 returns plain ``InputSpec(shape, dtype)`` records instead of JAX shape
-structs. Only the ``dense`` family runs in this port so far; the model
-constructors raise ``NotImplementedError`` naming the slice that brings the
-others (see :func:`require_supported`).
+structs. The ``dense`` and ``moe`` families run in this port so far; the
+model constructors raise ``NotImplementedError`` naming the slice that brings
+the others (see :func:`require_supported`).
 """
 from __future__ import annotations
 
@@ -23,7 +23,8 @@ ARCHS = {
 }
 
 # the port slice that brings each non-dense family (ROADMAP queue 1)
-FAMILY_SLICE = {"moe": 3, "ssm": 5, "hybrid": 5, "vlm": 5, "audio": 5}
+FAMILY_SLICE = {"ssm": 5, "hybrid": 5, "vlm": 5, "audio": 5}
+SUPPORTED_FAMILIES = ("dense", "moe")
 
 
 class InputSpec(NamedTuple):
@@ -46,10 +47,11 @@ def get_shape(shape: str) -> ShapeConfig:
 
 def require_supported(cfg: ModelConfig) -> None:
     """Raise unless this port can build ``cfg``'s model family yet."""
-    if cfg.family != "dense":
+    if cfg.family not in SUPPORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is ported in slice "
-            f"{FAMILY_SLICE.get(cfg.family, '?')}; only 'dense' runs so far")
+            f"{FAMILY_SLICE.get(cfg.family, '?')}; only "
+            f"{', '.join(SUPPORTED_FAMILIES)} run so far")
 
 
 def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:

@@ -34,6 +34,7 @@ SIGNATURES = {
     "repro_paged_attention_verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _I, _I, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "repro_moe_gmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB = None

@@ -11,7 +11,9 @@ primitives, per-token ``RequestOutput`` deltas streamed as they are emitted.
         [--spec-decode 4 --spec-draft-layers 1]
 
 Runs on ``cuda`` unless ``--device cpu`` is given; the weights are random
-from ``--seed``. The one-shot batch path, ``--replicas``, ``--faults``,
+from ``--seed``. An MoE arch (``--arch granite-moe-3b-a800m``) serves with a
+zero router bias of shape (num_layers, E), as the JAX package does without
+``--restore``. The one-shot batch path, ``--replicas``, ``--faults``,
 ``--journal`` and ``--restore`` arrive with later port slices and are
 rejected here.
 """
@@ -61,9 +63,10 @@ def build_parser() -> argparse.ArgumentParser:
                     action=argparse.BooleanOptionalAction)
     ap.add_argument("--attn-backend", default="kernel",
                     choices=("kernel", "torch"),
-                    help="attention compute: the hand-written CUDA kernels "
+                    help="route of every hand-written kernel (attention "
+                         "and the MoE expert products): the CUDA kernels "
                          "(plain versions on CPU tensors) or the torch "
-                         "gather oracle")
+                         "oracle (gather attention, expert einsums)")
     ap.add_argument("--trace", default="bursty",
                     choices=("bursty", "shared-prefix", "contention",
                              "agentic"),
@@ -114,6 +117,8 @@ def main(argv=None):
         cfg = cfg.smoke()
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     params = model_lib.init_params(cfg, gen, device=args.device)
+    bias = (torch.zeros((cfg.num_layers, cfg.num_experts))
+            if cfg.num_experts else None)
     lcm = math.lcm(args.page_size, args.prefill_chunk or 1)
     raw = args.prompt_len + args.steps + 48
     ecfg = eng_mod.EngineConfig(
@@ -145,7 +150,8 @@ def main(argv=None):
         trace = traces.synthetic_trace(cfg, num_requests=args.requests,
                                        heavy_tokens=args.steps + 8, **sampling)
 
-    eng = eng_mod.Engine(params, cfg, ecfg, device=args.device)
+    eng = eng_mod.Engine(params, cfg, ecfg, device=args.device,
+                         router_bias=bias)
     t0 = time.perf_counter()
     for out in eng.stream(trace, max_ticks=50 * args.requests):
         if out.rid >= args.show_stream or \

@@ -10,10 +10,13 @@ Conventions:
     **in place** (``index_put_`` / ``copy_``) and return — where the JAX
     package returns new, donated pools. A caller that needs the old cache
     must copy it first.
-  * ``backend`` picks the attention compute: ``"kernel"`` (the default — the
-    hand-written CUDA kernels on CUDA tensors, their plain versions on CPU
-    tensors) or ``"torch"`` (the gather + ``_sdpa`` oracle, mirroring the
-    JAX package's ``"xla"``)
+  * ``backend`` (``BACKENDS``; carried as ``attn_backend`` by the callers)
+    picks the route of every hand-written kernel: ``"kernel"`` (the default
+    — the CUDA kernels on CUDA tensors, their plain versions on CPU tensors:
+    paged decode and verify, flash prefill, and the MoE grouped matmul for
+    the three expert products) or ``"torch"`` (the gather + ``_sdpa``
+    attention oracle, mirroring the JAX package's ``"xla"``, and the expert
+    einsums in the model dtype, as the JAX package computes them)
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 def check_backend(backend: str) -> None:
     if backend not in BACKENDS:
-        raise ValueError(f"unknown attention backend {backend!r}; "
+        raise ValueError(f"unknown kernel backend {backend!r}; "
                          f"choose from {BACKENDS}")
 
 

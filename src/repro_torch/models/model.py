@@ -1,11 +1,13 @@
 """Top-level model API: init / prefill / decode / sampling / paged-pool surgery
-(PyTorch port of ``repro/models/model.py``, dense family).
+(PyTorch port of ``repro/models/model.py``, dense and MoE families).
 
 Batch layouts: prefill ``{"tokens": (B, S) int}``, decode
 ``{"token": (B, 1) int}`` plus a cache and its ``pos``. The model is a
 :class:`Model` module; every function takes it as ``params`` so the call
 shapes mirror the JAX package's. Caches are updated in place (see
 ``layers``); the returned cache dicts share their tensors with the inputs.
+``router_bias`` is the MoE family's (num_layers, E) immune router bias
+(``None`` for dense models).
 """
 from __future__ import annotations
 
@@ -75,7 +77,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Model:
     """The JAX package's parameter tree (nested dicts of numpy arrays; the
     stack as ``[[block dict]]`` with a leading depth dimension) as a
     :class:`Model` on ``device`` — how both packages compute on the same
-    weights."""
+    weights. Each leaf is copied into its parameter's own dtype, so an MoE
+    block's ``moe.w_router`` stays float32 in a bf16 model, as in the JAX
+    package."""
     model = Model(cfg, None, torch.device(device))
 
     def leaf(node, path):
@@ -176,12 +180,14 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> dict:
 
 
 def prefill(params: Model, cfg: ModelConfig, batch: dict, cache: dict,
-            attn_backend: str = "kernel"):
+            attn_backend: str = "kernel",
+            router_bias: Optional[torch.Tensor] = None):
     """Batched prompt processing; fills the cache (in place) and returns the
     last-position logits (B, 1, V) fp32 and the cache."""
     x = _embed(params, cfg, batch["tokens"])
     x, layer_caches = transformer.apply_stack_prefill(
-        params.blocks, x, cfg, cache["layers"], attn_backend=attn_backend)
+        params.blocks, x, cfg, cache["layers"], attn_backend=attn_backend,
+        bias=router_bias)
     logits = _head(params, cfg, x[:, -1:])
     return logits, {"layers": layer_caches,
                     "pos": torch.tensor(x.shape[1], dtype=torch.int32,
@@ -191,21 +197,23 @@ def prefill(params: Model, cfg: ModelConfig, batch: dict, cache: dict,
 def decode_step(params: Model, cfg: ModelConfig, batch: dict, cache: dict,
                 table: Optional[torch.Tensor] = None,
                 active: Optional[torch.Tensor] = None,
-                attn_backend: str = "kernel"):
+                attn_backend: str = "kernel",
+                router_bias: Optional[torch.Tensor] = None):
     """One token for every sequence. ``table`` (B, maxp) switches the
     attention layers onto the paged pool (``active`` routes inactive lanes'
     writes to the null page). Returns (logits (B, 1, V), cache with pos+1)."""
     x = _embed(params, cfg, batch["token"])
     x, layer_caches = transformer.apply_stack_decode(
         params.blocks, x, cfg, cache["layers"], cache["pos"], table=table,
-        active=active, attn_backend=attn_backend)
+        active=active, attn_backend=attn_backend, bias=router_bias)
     return _head(params, cfg, x), {"layers": layer_caches,
                                    "pos": cache["pos"] + 1}
 
 
 def verify_step(params: Model, cfg: ModelConfig, batch: dict, pool: dict,
                 table: torch.Tensor, active: Optional[torch.Tensor] = None,
-                attn_backend: str = "kernel"):
+                attn_backend: str = "kernel",
+                router_bias: Optional[torch.Tensor] = None):
     """Batched k-position verify step for self-speculative decoding.
 
     ``batch["tokens"]`` is (B, K+1): each slot's last emitted token followed
@@ -221,7 +229,7 @@ def verify_step(params: Model, cfg: ModelConfig, batch: dict, pool: dict,
     x = _embed(params, cfg, batch["tokens"])
     x, layer_caches = transformer.apply_stack_verify(
         params.blocks, x, cfg, pool["layers"], pool["pos"], table,
-        active=active, attn_backend=attn_backend)
+        active=active, attn_backend=attn_backend, bias=router_bias)
     return _head(params, cfg, x), {"layers": layer_caches, "pos": pool["pos"]}
 
 
@@ -266,25 +274,31 @@ def release_slot_cache_paged(pool: dict, cfg: ModelConfig, slot: int) -> dict:
 
 
 def prefill_chunk(params: Model, cfg: ModelConfig, batch: dict, pool: dict,
-                  table_row: torch.Tensor, p0: int, last_idx: int):
+                  table_row: torch.Tensor, p0: int, last_idx: int,
+                  attn_backend: str = "kernel",
+                  router_bias: Optional[torch.Tensor] = None):
     """One chunk of a chunked prefill written straight into the paged pool;
     returns the logits at in-chunk index ``last_idx`` (1, 1, V). The pool's
-    ``pos`` is untouched."""
+    ``pos`` is untouched. The chunk's attention has one route;
+    ``attn_backend`` picks the expert products'."""
     x = _embed(params, cfg, batch["tokens"])
     x, layer_caches = transformer.apply_stack_prefill_chunk(
-        params.blocks, x, cfg, pool["layers"], table_row, p0)
+        params.blocks, x, cfg, pool["layers"], table_row, p0,
+        attn_backend=attn_backend, bias=router_bias)
     logits = _head(params, cfg, x[:, last_idx:last_idx + 1])
     return logits, {"layers": layer_caches, "pos": pool["pos"]}
 
 
 def prefill_chunk_multi(params: Model, cfg: ModelConfig, batch: dict,
                         pool: dict, tables: torch.Tensor, p0s: torch.Tensor,
-                        last_idx: torch.Tensor):
+                        last_idx: torch.Tensor, attn_backend: str = "kernel",
+                        router_bias: Optional[torch.Tensor] = None):
     """J concurrent prefill chunks (one in-flight job per lane) in one call;
     returns (J, 1, V) logits at each lane's ``last_idx``."""
     x = _embed(params, cfg, batch["tokens"])
     x, layer_caches = transformer.apply_stack_prefill_chunk_multi(
-        params.blocks, x, cfg, pool["layers"], tables, p0s)
+        params.blocks, x, cfg, pool["layers"], tables, p0s,
+        attn_backend=attn_backend, bias=router_bias)
     rows = torch.arange(x.shape[0], device=x.device)
     sel = x[rows, last_idx.long()][:, None]
     return _head(params, cfg, sel), {"layers": layer_caches,
@@ -321,3 +335,15 @@ def scrub_pages_paged(pool: dict, cfg: ModelConfig, pages) -> dict:
 
 def param_count(params: Model) -> int:
     return sum(p.numel() for p in params.parameters())
+
+
+def active_param_count(params: Model, cfg: ModelConfig) -> int:
+    """Per-token active parameters (MoE counts only k of E experts)."""
+    total = param_count(params)
+    if not cfg.num_experts:
+        return total
+    expert_total = sum(getattr(blk.moe, name).numel()
+                       for blk in params.blocks if hasattr(blk, "moe")
+                       for name in ("w_gate", "w_up", "w_down"))
+    active_frac = cfg.experts_per_token / cfg.num_experts
+    return int(total - expert_total * (1.0 - active_frac))

@@ -229,14 +229,15 @@ def _finish_oneshot(req: ServeRequest, stream: list, t0: float) -> RequestOutput
 def generate(params, cfg: ModelConfig,
              requests: Union[ServeRequest, Sequence[ServeRequest]],
              max_cache: int, capture_logits: bool = False,
-             attn_backend: str = "kernel"
+             attn_backend: str = "kernel", router_bias=None
              ) -> Union[RequestOutput, Sequence[RequestOutput]]:
     """One-shot serving facade: prefill + decode each request batch-of-1
     under its own ``SamplingParams`` on the model's device, returning
     finished ``RequestOutput``s — the oracle the engine is held to. With
     ``capture_logits`` each request's per-token logits rows land in
     ``req.out_logits``. A slot-group parent is expanded into its member
-    lanes, each served one-shot, and assembled as the engine assembles it."""
+    lanes, each served one-shot, and assembled as the engine assembles it.
+    ``router_bias`` is an MoE model's (num_layers, E) router bias."""
     from . import groups
     single = isinstance(requests, ServeRequest)
     reqs = [requests] if single else list(requests)
@@ -246,17 +247,20 @@ def generate(params, cfg: ModelConfig,
             t0 = time.perf_counter()
             members = groups.expand(req)
             member_outs = [_oneshot_one(params, cfg, m, max_cache,
-                                        capture_logits, attn_backend)
+                                        capture_logits, attn_backend,
+                                        router_bias)
                            for m in members]
             outs.append(groups.assemble(req, members, member_outs, t0))
         else:
             outs.append(_oneshot_one(params, cfg, req, max_cache,
-                                     capture_logits, attn_backend))
+                                     capture_logits, attn_backend,
+                                     router_bias))
     return outs[0] if single else outs
 
 
 def _oneshot_one(params, cfg: ModelConfig, req: ServeRequest, max_cache: int,
-                 capture_logits: bool, attn_backend: str) -> RequestOutput:
+                 capture_logits: bool, attn_backend: str,
+                 router_bias) -> RequestOutput:
     t0 = time.perf_counter()
     sp = req.params
     device = params.device
@@ -267,7 +271,8 @@ def _oneshot_one(params, cfg: ModelConfig, req: ServeRequest, max_cache: int,
                           return_logits=capture_logits,
                           return_logprobs=bool(sp.logprobs),
                           use_penalties=sp.has_penalties,
-                          return_topk=sp.logprobs, attn_backend=attn_backend)
+                          return_topk=sp.logprobs, attn_backend=attn_backend,
+                          router_bias=router_bias)
     stream = [int(t) for t in res[0][0].cpu()]
     out = _finish_oneshot(req, stream, t0)
     n = len(req.out_tokens)

@@ -42,7 +42,8 @@ def generate(params, cfg: ModelConfig, prompts: dict, max_cache: int,
              steps: int, sampling: Optional[model.SamplingSpec] = None,
              return_logits: bool = False, return_logprobs: bool = False,
              use_penalties: bool = False, return_topk: int = 0,
-             attn_backend: str = "kernel"):
+             attn_backend: str = "kernel",
+             router_bias: Optional[torch.Tensor] = None):
     """Prefill the prompt batch, then emit ``steps`` tokens — argmax by
     default, per-lane sampled under ``sampling``. Returns ``(tokens (B,
     steps), cache)``, plus the per-token logits rows ``(B, steps, V)`` when
@@ -50,12 +51,14 @@ def generate(params, cfg: ModelConfig, prompts: dict, max_cache: int,
     ``(B, steps)`` when ``return_logprobs``, plus ``(values, ids)``
     top-``return_topk`` logprobs ``(B, steps, k)`` when asked (always last).
     ``use_penalties`` threads the per-lane generated-token counts so the
-    spec's penalty rows bite (requires ``sampling``)."""
+    spec's penalty rows bite (requires ``sampling``). ``router_bias`` is an
+    MoE model's (num_layers, E) router bias."""
     tokens = prompts["tokens"]
     b, device = tokens.shape[0], tokens.device
     cache = model.init_cache(cfg, b, max_cache, device)
     logits, cache = model.prefill(params, cfg, prompts, cache,
-                                  attn_backend=attn_backend)
+                                  attn_backend=attn_backend,
+                                  router_bias=router_bias)
     do_sample = sampling is not None
     spec = sampling if do_sample else null_spec(b, device)
     tok = model.sample_tokens(logits, spec, 0) if do_sample else greedy(logits)
@@ -68,7 +71,8 @@ def generate(params, cfg: ModelConfig, prompts: dict, max_cache: int,
             # emitted token t comes out of decode step t-1 (the prefill
             # seeds token 0), the fold_in index both backends agree on
             logits, cache = model.decode_step(params, cfg, {"token": tok},
-                                              cache, attn_backend=attn_backend)
+                                              cache, attn_backend=attn_backend,
+                                              router_bias=router_bias)
             tok = model.sample_tokens(
                 logits, spec, t, counts=counts if use_penalties else None) \
                 if do_sample else greedy(logits)

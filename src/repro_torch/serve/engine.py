@@ -26,7 +26,17 @@ cache and splices it into the slot's pages; chunked prefill
 (``prefill_chunk > 0``) lands one chunk per tick straight into the pages
 (``prefill_streams > 1`` batches several jobs per call). Decode runs the
 paged attention through ``EngineConfig.attn_backend``: ``"kernel"`` (the
-CUDA kernel on the card) or ``"torch"`` (the gather oracle).
+CUDA kernels on the card) or ``"torch"`` (the gather oracle); the same switch
+picks the MoE expert products (the grouped-matmul kernel or einsums).
+
+MoE (``router_bias``, the (num_layers, E) immune router bias): the decode
+tick runs every slot, occupied or not, and expert capacity is contended
+across whatever shares the batch, so decode, draft and verify run at a
+dropless capacity (``cfg_decode``): a garbage lane never displaces a real
+request's token. One-shot prefill keeps the configured capacity — it is a
+batch-of-1 call, the same as one-shot ``generate``'s. Chunked prefill is
+exact against one-shot prefill only when dropless, so an MoE engine chunks
+only at ``capacity_factor * k >= E``.
 
 Self-speculative decoding (``EngineConfig.spec_decode = k > 0``): while every
 resident is greedy with no penalties and no logprobs, a tick drafts ``k``
@@ -56,6 +66,7 @@ placement telemetry (slice 6).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -124,12 +135,12 @@ class _PrefillJob:
 # slot-pool steps (the JAX package's jitted helpers; here eager, in place)
 # ---------------------------------------------------------------------------
 def _prefill_one(params, cfg: ModelConfig, prompts: dict, max_cache: int,
-                 attn_backend: str):
+                 attn_backend: str, router_bias):
     """Prefill a batch-of-1 prompt into a fresh dense cache; returns
     (last-position logits, cache) — the first stage of ``decode.generate``."""
     cache = model.init_cache(cfg, 1, max_cache, prompts["tokens"].device)
     return model.prefill(params, cfg, prompts, cache,
-                         attn_backend=attn_backend)
+                         attn_backend=attn_backend, router_bias=router_bias)
 
 
 def _seed_token(logits, spec, do_sample: bool) -> torch.Tensor:
@@ -139,9 +150,9 @@ def _seed_token(logits, spec, do_sample: bool) -> torch.Tensor:
         else greedy(logits)
 
 
-def _decode_tick(params, cfg: ModelConfig, pool, last, active, table, spec,
-                 steps_done, pen_counts, attn_backend: str, do_sample: bool,
-                 return_logits: bool, return_logprobs: bool,
+def _decode_tick(params, cfg: ModelConfig, pool, last, active, table,
+                 router_bias, spec, steps_done, pen_counts, attn_backend: str,
+                 do_sample: bool, return_logits: bool, return_logprobs: bool,
                  use_penalties: bool, return_topk: int):
     """One token for every slot (occupied or not). Inactive slots advance
     neither position nor last token; their paged writes land on the null
@@ -149,7 +160,8 @@ def _decode_tick(params, cfg: ModelConfig, pool, last, active, table, spec,
     ``ok`` flags lanes whose logits are all finite (the NaN/Inf guard)."""
     logits, new_pool = model.decode_step(params, cfg, {"token": last}, pool,
                                          table=table, active=active,
-                                         attn_backend=attn_backend)
+                                         attn_backend=attn_backend,
+                                         router_bias=router_bias)
     nxt = model.sample_tokens(logits, spec, steps_done,
                               counts=pen_counts if use_penalties else None) \
         if do_sample else greedy(logits)
@@ -235,10 +247,11 @@ class ImmuneAdmission:
 # ---------------------------------------------------------------------------
 class Engine:
     """Continuous-batching decode over a paged slot pool with queue admission.
-    ``params`` must already live on ``device``."""
+    ``params`` must already live on ``device``; an MoE model needs
+    ``router_bias`` (num_layers, E), which is moved there."""
 
     def __init__(self, params, cfg: ModelConfig, ecfg: EngineConfig,
-                 device="cuda"):
+                 device="cuda", router_bias=None):
         if ecfg.max_cache % ecfg.page_size:
             raise ValueError(f"max_cache {ecfg.max_cache} must be a multiple "
                              f"of page_size {ecfg.page_size}")
@@ -261,6 +274,12 @@ class Engine:
             raise ValueError(f"params live on {params.device}, engine device "
                              f"is {self.device}")
         self.params, self.cfg, self.ecfg = params, cfg, ecfg
+        self.router_bias = None if router_bias is None else torch.as_tensor(
+            router_bias, dtype=torch.float32, device=self.device)
+        # MoE: decode, draft and verify at dropless capacity (module doc)
+        self.cfg_decode = cfg if not cfg.num_experts else dataclasses.replace(
+            cfg, capacity_factor=float(max(cfg.num_experts,
+                                           cfg.capacity_factor)))
         s = ecfg.num_slots
         self.maxp = ecfg.max_cache // ecfg.page_size
         num_pages = ecfg.num_pages if ecfg.num_pages is not None \
@@ -270,16 +289,22 @@ class Engine:
             share_prefix=ecfg.prefix_sharing, pin_pages=ecfg.pin_pages,
             num_classes=ecfg.num_classes, pin_decay=ecfg.mem_decay,
             require_reservation=(ecfg.admission_mode == "reserve"))
+        # chunked prefill only where it is exact against one-shot prefill:
+        # the dense stack always, MoE only at dropless expert capacity
+        # (capacity is per call, so a finite capacity factor can drop other
+        # tokens per chunking): cf * k >= E. The JAX package decides per
+        # request; for these two families the answer is the same for every
+        # request (its per-request cases are the SSM and VLM families).
+        self._chunked = ecfg.prefill_chunk > 0 and (
+            not cfg.num_experts
+            or cfg.capacity_factor * cfg.experts_per_token >= cfg.num_experts)
         # prefix sharing needs K/V to be a pure function of the token prefix
-        # (true for the dense stack) and a chunked tail prefill to land only
-        # the unshared suffix
-        # chunked prefill is exact against one-shot prefill for the dense
-        # stack, so it applies to every request once switched on
-        self._chunked = ecfg.prefill_chunk > 0
+        # (true for both stacks) and a chunked tail prefill to land only the
+        # unshared suffix
         self._share_ok = ecfg.prefix_sharing and self._chunked
         self._multi_prefill = ecfg.prefill_streams > 1
         # self-speculative decoding needs one segment for the truncated-depth
-        # draft slice (the dense stack has one); the per-tick gate in step()
+        # draft slice (both stacks have one); the per-tick gate in step()
         # additionally requires every resident greedy with no penalties or
         # logprobs
         self._spec_ok = (ecfg.spec_decode > 0
@@ -536,7 +561,8 @@ class Engine:
             return True
         logits, one = _prefill_one(self.params, self.cfg,
                                    req.prompts(self.device),
-                                   self.ecfg.max_cache, self.ecfg.attn_backend)
+                                   self.ecfg.max_cache, self.ecfg.attn_backend,
+                                   self.router_bias)
         self.prefills += 1
         first = self._seed_slot(req, logits)
         self.alloc.ensure(slot, pages_for(plen, ps))
@@ -796,7 +822,9 @@ class Engine:
                 tables[lane] = tbl[job.slot]
             logits_j, self.pool = model.prefill_chunk_multi(
                 self.params, self.cfg, {"tokens": self._dev(toks)}, self.pool,
-                self._dev(tables), self._dev(p0s), self._dev(last_idxs))
+                self._dev(tables), self._dev(p0s), self._dev(last_idxs),
+                attn_backend=self.ecfg.attn_backend,
+                router_bias=self.router_bias)
             self.chunked_prefill_chunks += len(take)
             self.prefill_batch_calls += 1
             unfinished = []
@@ -821,7 +849,8 @@ class Engine:
         last_idx = min(max(job.length - 1 - job.p0, 0), c - 1)
         logits, self.pool = model.prefill_chunk(
             self.params, self.cfg, {"tokens": self._dev(toks)[None]},
-            self.pool, self._table_row(job.slot), job.p0, last_idx)
+            self.pool, self._table_row(job.slot), job.p0, last_idx,
+            attn_backend=self.ecfg.attn_backend, router_bias=self.router_bias)
         self.chunked_prefill_chunks += 1
         job.p0 = end
         if end >= job.total:
@@ -911,8 +940,8 @@ class Engine:
         spec = self._pool_spec() if do_sample else self._null_spec
         pen = self._dev(self.tok_counts) if use_penalties else None
         nxt, self.last, self.pool, ok, logits, lps, topk = _decode_tick(
-            self.params, self.cfg, self.pool, self.last, self.active,
-            self._dev(self.alloc.table()), spec, counts, pen,
+            self.params, self.cfg_decode, self.pool, self.last, self.active,
+            self._dev(self.alloc.table()), self.router_bias, spec, counts, pen,
             attn_backend=self.ecfg.attn_backend, do_sample=do_sample,
             return_logits=self.ecfg.capture_logits, return_logprobs=want_lp,
             use_penalties=use_penalties, return_topk=want_k)
@@ -961,11 +990,12 @@ class Engine:
         t0 = time.perf_counter()
         k = self.ecfg.spec_decode
         drafts, am, ok, logits, new_pool = specdec.spec_tick(
-            self.params, self.cfg, self.pool, self.last, self.active,
+            self.params, self.cfg_decode, self.pool, self.last, self.active,
             self._dev(self.alloc.table()), k=k,
             depth=self.ecfg.spec_draft_layers,
             attn_backend=self.ecfg.attn_backend,
-            return_logits=self.ecfg.capture_logits)
+            return_logits=self.ecfg.capture_logits,
+            router_bias=self.router_bias)
         drafts_h = drafts.cpu().numpy()
         am_h = am.cpu().numpy()
         ok_h = ok.cpu().numpy()

@@ -22,7 +22,10 @@ only at a token whose reference top-2 margin is below the tolerance.
 
 The engine gates spec ticks to all-greedy resident batches (sampled lanes
 fold PRNG keys per emitted index — a multi-token tick has no single key),
-with no penalties and no logprobs.
+with no penalties and no logprobs. An MoE engine's router bias rides into
+both draft and verify: verify routes with exactly the plain tick's bias (at
+the engine's dropless decode capacity), the draft with its leading layers'
+rows.
 
 ``make_draft_friendly`` is the test/bench utility that makes a random init
 behave like a trained model for acceptance purposes: scaling the deep
@@ -32,6 +35,7 @@ so the truncated head agrees with the full head often.
 from __future__ import annotations
 
 import copy
+from typing import Optional
 
 import torch
 
@@ -42,7 +46,8 @@ from ..models import model, transformer
 def spec_tick(params: model.Model, cfg: ModelConfig, pool: dict,
               last: torch.Tensor, active: torch.Tensor, table: torch.Tensor,
               k: int, depth: int, attn_backend: str = "kernel",
-              return_logits: bool = False):
+              return_logits: bool = False,
+              router_bias: Optional[torch.Tensor] = None):
     """One fused draft+verify tick over the whole slot batch.
 
     ``last`` (B, 1) is each slot's newest emitted token (its K/V not yet
@@ -66,7 +71,8 @@ def spec_tick(params: model.Model, cfg: ModelConfig, pool: dict,
         x = model._embed(params, cfg, tok)
         x = transformer.apply_layers_decode(pairs, x, cfg, posv, table=table,
                                             active=active,
-                                            attn_backend=attn_backend)
+                                            attn_backend=attn_backend,
+                                            bias=router_bias)
         lg = model._head(params, cfg, x)
         tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
         drafts.append(tok)
@@ -75,7 +81,8 @@ def spec_tick(params: model.Model, cfg: ModelConfig, pool: dict,
     seq = torch.cat([last, drafts], dim=1)                     # (B, k+1)
     logits, pool = model.verify_step(params, cfg, {"tokens": seq}, pool,
                                      table, active=active,
-                                     attn_backend=attn_backend)
+                                     attn_backend=attn_backend,
+                                     router_bias=router_bias)
     am = torch.argmax(logits, dim=-1).to(torch.int32)          # (B, k+1)
     ok = torch.isfinite(logits).flatten(1).all(dim=1)          # (B,)
     return drafts, am, ok, (logits if return_logits else None), pool
@@ -94,13 +101,14 @@ def accept_length(drafts, argmaxes, k: int) -> int:
 def make_draft_friendly(params: model.Model, cfg: ModelConfig, depth: int,
                         scale: float = 0.05) -> model.Model:
     """A copy of ``params`` with the residual write-back projections (``wo``,
-    ``w_down``) of every layer >= ``depth`` scaled toward zero (in fp32, cast
-    back), so the deep layers barely move the residual stream and the
-    truncated-depth draft's argmax usually agrees with the full model's. The
-    model it is given is left unchanged."""
+    and ``w_down`` of the MLP or of every expert) of every layer >= ``depth``
+    scaled toward zero (in fp32, cast back), so the deep layers barely move
+    the residual stream and the truncated-depth draft's argmax usually agrees
+    with the full model's. The model it is given is left unchanged."""
     out = copy.deepcopy(params)
     with torch.no_grad():
         for blk in list(out.blocks)[depth:]:
-            for w in (blk.mixer.wo, blk.mlp.w_down):
+            ffn = blk.moe if hasattr(blk, "moe") else blk.mlp
+            for w in (blk.mixer.wo, ffn.w_down):
                 w.copy_((w.float() * scale).to(w.dtype))
     return out

@@ -1,7 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
-(paged decode, paged verify, flash), the verify kernel at Sq = 1 against the
-decode kernel, and the engine (plain and speculative) on the card against
-its own one-shot oracle.
+(paged decode, paged verify, flash, the MoE grouped matmul), the verify
+kernel at Sq = 1 against the decode kernel, and the engine (plain and
+speculative, dense and MoE) on the card against its own one-shot oracle.
 
 Marked ``cuda``; each test decides inside itself whether a card is visible
 and skips otherwise (never at import time). This file imports no JAX, so it
@@ -15,6 +15,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.moe_gmm import gmm_ref, moe_gmm
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_ref,
                                                  paged_attention_verify,
@@ -135,6 +136,57 @@ def test_flash_kernel_matches_plain(card, s, causal, dtype, tol):
     assert flash_attention.launches == n0 + 1
     ref = attention_ref(q, k, v, causal=causal)
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("e,c,d,f", [(40, 64, 1536, 512), (40, 64, 512, 1536),
+                                     (40, 252, 1536, 512), (3, 37, 96, 80),
+                                     (5, 130, 45, 23)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-1)])
+def test_gmm_kernel_matches_plain(card, e, c, d, f, dtype, tol):
+    """granite-moe widths (decode, down, prefill) and ragged shapes; seeded
+    group sizes with 0 and C; rows past each group hold live values and must
+    come out exactly 0."""
+    g = torch.Generator(device=card).manual_seed(e * c + f)
+    x = torch.randn(e, c, d, generator=g, device=card).to(dtype)
+    w = (torch.randn(e, d, f, generator=g, device=card) / d ** 0.5).to(dtype)
+    sizes = torch.randint(0, c + 1, (e,), generator=g, device=card,
+                          dtype=torch.int32)
+    sizes[0], sizes[-1] = 0, c
+    n0 = moe_gmm.launches
+    out = moe_gmm(x, w, sizes)
+    torch.cuda.synchronize()
+    assert moe_gmm.launches == n0 + 1
+    ref = gmm_ref(x, w, sizes)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    dead = torch.arange(c, device=card)[None, :] >= sizes[:, None]
+    assert (out[dead] == 0).all()
+
+
+def test_moe_engine_on_card_matches_oneshot(card):
+    """Smoke-size fp32 granite-moe engine with the kernels on the card and a
+    nonzero router bias emits exactly the one-shot ``generate`` tokens; the
+    grouped matmul runs three times per layer per prefill and tick."""
+    cfg = configs.get_config("granite-moe-3b-a800m").smoke()
+    params = model.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                               device=card)
+    bias = 0.5 * torch.randn(cfg.num_layers, cfg.num_experts,
+                             generator=torch.Generator().manual_seed(1))
+    trace = traces.synthetic_trace(cfg, num_requests=6)
+    eng = eng_mod.Engine(params, cfg,
+                         eng_mod.EngineConfig(num_slots=3, max_cache=96),
+                         device=card, router_bias=bias)
+    n0 = moe_gmm.launches
+    stats = eng.run(trace, max_ticks=400)
+    assert len(eng.completed) == len(trace)
+    assert moe_gmm.launches - n0 == 3 * cfg.num_layers * (
+        stats["decode_ticks"] + stats["prefills"])
+    for req in eng.completed:
+        probe = api.ServeRequest(rid=req.rid, tokens=req.tokens,
+                                 params=req.params)
+        assert api.generate(params, cfg, probe, max_cache=96,
+                            router_bias=bias.to(card)).tokens \
+            == req.out_tokens
 
 
 def test_engine_on_card_matches_oneshot(card):

@@ -7,9 +7,14 @@ one-shot ``api.generate`` tokens; the admission, sharing, preemption and
 paging counters are equal. The traces cover mid-stream one-shot prefill,
 seeded sampling, chunked prefill with prefix sharing and copy-on-write forks,
 batched prefill streams with a pinned prefix cache, and page contention with
-preemption and replay.
+preemption and replay; on ``granite-moe-3b-a800m`` smoke weights with a
+router bias, one-shot prefill at capacity factor 1.25 (which drops
+assignments) and dropless chunked prefill.
 """
+import dataclasses
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -20,7 +25,8 @@ from repro.serve import api as japi
 from repro.serve import engine as jengine
 from repro.serve import traces as jtraces
 from repro_torch import configs
-from repro_torch.models import model
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import model, moe
 from repro_torch.serve import api, engine, traces
 
 # smoke-size ops: one intra-op thread per test worker (the suite runs
@@ -48,14 +54,19 @@ def pair():
     return jcfg, cfg, jp, tp
 
 
-def serve_both(pair, make_trace, **ekw):
-    """Run ``make_trace(traces_module, cfg)`` through both engines; check
-    token and counter equality and the port's one-shot oracle. Returns the
-    port engine and its stats."""
+def serve_both(pair, make_trace, bias=None, **ekw):
+    """Run ``make_trace(traces_module, cfg)`` through both engines (an MoE
+    pair with the router ``bias``, a numpy array); check token and counter
+    equality and the port's one-shot oracle. Returns the port engine and its
+    stats."""
     jcfg, cfg, jp, tp = pair
-    jeng = jengine.Engine(jp, jcfg, jengine.EngineConfig(**ekw))
+    jbias, tbias = (None, None) if bias is None else \
+        (jnp.asarray(bias), torch.as_tensor(bias))
+    jeng = jengine.Engine(jp, jcfg, jengine.EngineConfig(**ekw),
+                          router_bias=jbias)
     jstats = jeng.run(make_trace(jtraces, jcfg), max_ticks=600)
-    teng = engine.Engine(tp, cfg, engine.EngineConfig(**ekw), device="cpu")
+    teng = engine.Engine(tp, cfg, engine.EngineConfig(**ekw), device="cpu",
+                         router_bias=tbias)
     tstats = teng.run(make_trace(traces, cfg), max_ticks=600)
     ours = {r.rid: r.out_tokens for r in teng.completed}
     ref = {r.rid: r.out_tokens for r in jeng.completed}
@@ -67,8 +78,8 @@ def serve_both(pair, make_trace, **ekw):
     for req in teng.completed:
         probe = api.ServeRequest(rid=req.rid, tokens=req.tokens,
                                  params=req.params)
-        assert api.generate(tp, cfg, probe, max_cache=ekw["max_cache"]
-                            ).tokens == req.out_tokens, \
+        assert api.generate(tp, cfg, probe, max_cache=ekw["max_cache"],
+                            router_bias=tbias).tokens == req.out_tokens, \
             f"request {req.rid}: engine != port one-shot"
     assert tstats["pages_in_use"] == tstats["pages_pinned"]
     return teng, tstats
@@ -184,3 +195,112 @@ class TestContentionTrace:
             num_slots=3, max_cache=64, num_pages=7, num_classes=3,
             admission_mode="reserve")
         assert stats["preemptions"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: granite-moe-3b-a800m smoke (8 experts, top-2, cf 1.25)
+# ---------------------------------------------------------------------------
+def _moe_pair(**kw):
+    jcfg = dataclasses.replace(
+        jconfigs.get_config("granite-moe-3b-a800m").smoke(), **kw)
+    cfg = dataclasses.replace(
+        configs.get_config("granite-moe-3b-a800m").smoke(), **kw)
+    jp = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = model.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    return jcfg, cfg, jp, tp
+
+
+def _moe_bias(cfg, seeded: bool):
+    if not seeded:
+        return np.zeros((cfg.num_layers, cfg.num_experts), np.float32)
+    rng = np.random.default_rng(3)
+    return (0.5 * rng.standard_normal((cfg.num_layers, cfg.num_experts))
+            ).astype(np.float32)
+
+
+def _moe_trace(mod, cfg, n=4, seed=1, prompt_lens=(6, 10), steps=(4, 6)):
+    """The staggered requests of tests/test_serve_engine.py's MoE parity
+    case, in either package's request type."""
+    ns = japi if mod is jtraces else api
+    rng = np.random.default_rng(seed)
+    return [ns.ServeRequest(
+        rid=rid, tokens=rng.integers(0, cfg.vocab_size,
+                                     size=prompt_lens[rid % 2]).astype(
+                                         np.int32),
+        params=ns.SamplingParams(max_new_tokens=steps[rid % 2]),
+        rclass=rid % 2, arrival=rid) for rid in range(n)]
+
+
+class TestMoE:
+    @pytest.mark.parametrize("seeded", [False, True])
+    def test_oneshot_prefill_drops_like_jax(self, seeded, monkeypatch):
+        """cf 1.25: every prompt takes one-shot prefill at its own capacity,
+        which drops assignments; decode runs dropless. Tokens and counters
+        equal the JAX engine's, and every stream its one-shot oracle's."""
+        pair = _moe_pair()
+        drops = []
+        ffn = moe.moe_ffn
+
+        def recording(*a, **kw):
+            y, stats = ffn(*a, **kw)
+            drops.append((a[1].shape[1], float(stats.drop_frac)))
+            return y, stats
+
+        monkeypatch.setattr(moe, "moe_ffn", recording)
+        eng, stats = serve_both(pair, _moe_trace,
+                                bias=_moe_bias(pair[1], seeded),
+                                num_slots=2, max_cache=48, policy="fifo")
+        assert stats["completed"] == 4 and stats["mid_stream_admissions"] >= 1
+        assert stats["chunked_prefill_chunks"] == 0
+        assert any(d > 0 for s, d in drops if s > 1), "no prefill dropped"
+        assert all(d == 0 for s, d in drops if s == 1), "decode dropped"
+
+    def test_dropless_chunked_prefill_equals_jax(self):
+        """cf 8 (dropless: cf * k >= E): chunked prefill and prefix sharing
+        switch on, and both engines agree."""
+        pair = _moe_pair(capacity_factor=8.0)
+        eng, stats = serve_both(
+            pair, lambda m, c: _moe_trace(m, c, n=6, prompt_lens=(12, 20)),
+            bias=_moe_bias(pair[1], True), num_slots=3, max_cache=48,
+            prefill_chunk=8, policy="fifo")
+        assert stats["completed"] == 6 and stats["chunked_prefill_chunks"] > 0
+        assert eng.stats()["prefills"] == 0
+
+    def test_moe_engine_refuses_to_chunk_at_finite_capacity(self):
+        _, cfg, _, tp = _moe_pair()
+        eng = engine.Engine(tp, cfg, engine.EngineConfig(prefill_chunk=8),
+                            device="cpu",
+                            router_bias=_moe_bias(cfg, False))
+        assert not eng._chunked and not eng._share_ok
+        assert eng.cfg_decode.capacity_factor == cfg.num_experts
+        assert eng.router_bias.dtype == torch.float32
+
+    def test_params_from_numpy_round_trips_moe_leaves(self):
+        """Every ``moe`` leaf lands in its block; in a bf16 model the router
+        stays float32 (as the JAX package keeps it) and the experts bf16."""
+        for dtype in ("float32", "bfloat16"):
+            jcfg, cfg, jp, tp = _moe_pair(dtype=dtype)
+            tree = jax.tree.map(np.asarray, jp)
+            leaves = tree["stack"][0][0]["moe"]
+            for li, blk in enumerate(tp.blocks):
+                assert not hasattr(blk, "mlp")
+                for name in ("w_router", "w_gate", "w_up", "w_down"):
+                    got = getattr(blk.moe, name)
+                    want = leaves[name][li]
+                    assert got.dtype == (torch.float32 if name == "w_router"
+                                         else getattr(torch, dtype)), name
+                    np.testing.assert_array_equal(
+                        got.float().numpy(),
+                        np.asarray(want, np.float32))
+            assert model.active_param_count(tp, cfg) == \
+                jmodel.active_param_count(jp, jcfg)
+            assert model.param_count(tp) == jmodel.param_count(jp)
+
+
+def test_cli_serves_granite_moe_on_cpu(capsys):
+    stats = launch_serve.main(["--arch", "granite-moe-3b-a800m", "--smoke",
+                               "--stream", "--device", "cpu", "--requests",
+                               "6", "--slots", "3", "--steps", "8"])
+    assert stats["completed"] + stats["shed"] + stats["rejected"] == 6
+    assert stats["completed"] >= 1 and stats["prefills"] >= 1
+    assert "completed" in capsys.readouterr().out

@@ -1,11 +1,12 @@
 """The port's kernel packages on the CPU: each kernel's plain PyTorch version
 against the JAX package's Pallas kernel (interpret mode) and its jnp oracle,
 and the wrappers' contract checks and CPU dispatch. The kernels: paged
-decode, the paged verify step of self-speculative decoding, flash attention.
+decode, the paged verify step of self-speculative decoding, flash attention,
+the MoE grouped matmul.
 
 Inputs are drawn with numpy from a seed and handed to both packages.
 Tolerances (as in tests/test_kernels.py): paged 1e-5 fp32, flash 5e-5 fp32,
-5e-2 bf16. The CUDA kernels themselves run only on the card
+5e-2 bf16; grouped matmul 2e-4 fp32, 2e-1 bf16. The CUDA kernels themselves run only on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 import jax
@@ -16,6 +17,8 @@ import torch
 
 from repro.kernels.flash_attention import attention_ref as jax_attention_ref
 from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.moe_gmm import gmm_ref as jax_gmm_ref
+from repro.kernels.moe_gmm import moe_gmm as jax_gmm
 from repro.kernels.paged_attention import paged_attention as jax_paged
 from repro.kernels.paged_attention import paged_attention_ref as jax_paged_ref
 from repro.kernels.paged_attention import \
@@ -23,6 +26,7 @@ from repro.kernels.paged_attention import \
 from repro.kernels.paged_attention import \
     paged_attention_verify_ref as jax_verify_ref
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.moe_gmm import gmm_ref, moe_gmm
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_ref,
                                                  paged_attention_verify,
@@ -212,6 +216,62 @@ def test_flash_plain_ragged_matches_jax_ref(s, dtype, tol, causal):
                                rtol=tol, atol=tol)
 
 
+def gmm_fixture(seed, e, c, d, f, masked=True):
+    """Inputs, weights and seeded group sizes that include 0 and C; with
+    ``masked`` the rows past each group are zeroed (the TPU kernel's
+    caller contract), otherwise they hold live-looking values."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((e, c, d)).astype(np.float32)
+    w = rng.standard_normal((e, d, f)).astype(np.float32)
+    sizes = rng.integers(0, c + 1, size=e).astype(np.int32)
+    sizes[0], sizes[-1] = 0, c
+    if masked:
+        x = np.where(np.arange(c)[None, :, None] < sizes[:, None, None], x,
+                     0.0).astype(np.float32)
+    return x, w, sizes
+
+
+@pytest.mark.parametrize("e,c,d,f", [(8, 64, 32, 64), (4, 128, 128, 256),
+                                     (6, 32, 64, 32), (3, 96, 96, 96)])
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4), ("bfloat16", 2e-1)])
+def test_gmm_plain_matches_jax(e, c, d, f, dtype, tol):
+    """The shapes of tests/test_kernels.py: the plain version against the
+    interpret-mode Pallas kernel and the JAX oracle."""
+    x, w, sizes = gmm_fixture(e * c + f, e, c, d, f)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    out = gmm_ref(torch.as_tensor(x).to(tdt), torch.as_tensor(w).to(tdt),
+                  torch.as_tensor(sizes))
+    assert out.dtype == tdt
+    jx, jw = jnp.asarray(x).astype(jdt), jnp.asarray(w).astype(jdt)
+    for ref in (jax_gmm(jx, jw, jnp.asarray(sizes), bc=32, bf=32, bd=32,
+                        interpret=True),
+                jax_gmm_ref(jx, jw, jnp.asarray(sizes))):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(ref.astype(jnp.float32)),
+                                   rtol=tol, atol=tol)
+    assert not out[0].any(), "an empty group is not exactly zero"
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4), ("bfloat16", 2e-1)])
+def test_gmm_ragged_dead_rows_are_zero_whatever_they_hold(dtype, tol):
+    """C, D, F multiples of no tile, and nonzero input past every group:
+    the output there is exactly 0 (the JAX oracle's contract; the TPU kernel
+    asserts divisibility and zeroes only whole blocks)."""
+    x, w, sizes = gmm_fixture(11, 5, 37, 45, 23, masked=False)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    out = moe_gmm(torch.as_tensor(x).to(tdt), torch.as_tensor(w).to(tdt),
+                  torch.as_tensor(sizes))
+    ref = jax_gmm_ref(jnp.asarray(x).astype(jdt), jnp.asarray(w).astype(jdt),
+                      jnp.asarray(sizes))
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+    dead = np.arange(37)[None, :] >= sizes[:, None]
+    assert dead.any() and np.abs(x[dead]).max() > 0
+    assert (out.float().numpy()[dead] == 0.0).all()
+    assert (out.float().numpy()[~dead] != 0.0).all()
+
+
 class TestWrappers:
     """CPU tensors take the plain version (no launch counted); the kernel
     contract is checked on every call."""
@@ -275,3 +335,24 @@ class TestWrappers:
                             y, y)
         with pytest.raises(ValueError, match="device"):
             flash_attention(x.to("meta"), y, y)
+
+    def test_gmm_counts_no_launch_and_checks_contract(self):
+        x, w, sizes = (torch.as_tensor(a)
+                       for a in gmm_fixture(0, 3, 10, 8, 6, masked=False))
+        n0 = moe_gmm.launches
+        assert torch.equal(moe_gmm(x, w, sizes), gmm_ref(x, w, sizes))
+        assert moe_gmm.launches == n0
+        with pytest.raises(TypeError):
+            moe_gmm(x.half(), w.half(), sizes)
+        with pytest.raises(TypeError):
+            moe_gmm(x, w.to(torch.bfloat16), sizes)
+        with pytest.raises(TypeError, match="int32"):
+            moe_gmm(x, w, sizes.long())
+        with pytest.raises(ValueError, match="bad shapes"):
+            moe_gmm(x, w[:, :5].contiguous(), sizes)
+        with pytest.raises(ValueError, match="bad shapes"):
+            moe_gmm(x, w, sizes[:2])
+        with pytest.raises(ValueError, match="contiguous"):
+            moe_gmm(x.transpose(1, 2).contiguous().transpose(1, 2), w, sizes)
+        with pytest.raises(ValueError, match="device"):
+            moe_gmm(x.to("meta"), w, sizes)

@@ -116,7 +116,7 @@ class TestConfigs:
                     assert ours[k].dtype == str(ref[k].dtype)
 
     @pytest.mark.parametrize("arch,slice_", [("mamba2-130m", 5),
-                                             ("granite-moe-3b-a800m", 3),
+                                             ("recurrentgemma-9b", 5),
                                              ("paligemma-3b", 5)])
     def test_other_families_name_their_slice(self, arch, slice_):
         cfg = configs.get_config(arch).smoke()

@@ -3,7 +3,8 @@ the paged verify layer and ``verify_step`` (written pages and logits),
 ``spec_tick`` (drafts and argmaxes), and the engine — spec equal to non-spec
 equal to the JAX spec engine, spec ticks gated off by sampled, logprob and
 penalized residents, preemption replay, stop and budget inside an accepted
-run, and positions past a slot's capacity.
+run, and positions past a slot's capacity; on the MoE family, with a nonzero
+router bias riding into draft and verify.
 
 Tolerances (fp32 smoke weights, the JAX tree converted with
 ``params_from_numpy``): logits within 1e-5, tokens exactly equal. The JAX
@@ -22,6 +23,7 @@ import torch
 from repro import configs as jconfigs
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
+from repro.serve import api as japi
 from repro.serve import engine as jengine
 from repro.serve import spec as jspec
 from repro.serve import traces as jtraces
@@ -458,3 +460,108 @@ def test_cli_serves_agentic_with_spec_on_cpu(capsys):
     assert stats["completed"] + stats["shed"] + stats["rejected"] == 8
     assert stats["spec_decode"] == 4
     assert "spec decode: k=4" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the MoE family (granite-moe-3b-a800m smoke) with a nonzero router bias
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def moe_pair():
+    jcfg = jconfigs.get_config("granite-moe-3b-a800m").smoke()
+    cfg = configs.get_config("granite-moe-3b-a800m").smoke()
+    jp = jspec.make_draft_friendly(
+        jmodel.init_params(jax.random.PRNGKey(0), jcfg), jcfg, DEPTH)
+    tp = model.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    bias = (0.5 * np.random.default_rng(2).standard_normal(
+        (cfg.num_layers, cfg.num_experts))).astype(np.float32)
+    return jcfg, cfg, jp, tp, bias
+
+
+class TestMoESpec:
+    def test_draft_friendly_scales_the_experts_like_jax(self):
+        jcfg = jconfigs.get_config("granite-moe-3b-a800m").smoke()
+        cfg = configs.get_config("granite-moe-3b-a800m").smoke()
+        jp = jmodel.init_params(jax.random.PRNGKey(1), jcfg)
+        tp = model.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
+        out = spec.make_draft_friendly(tp, cfg, DEPTH)
+        ref = model.params_from_numpy(jax.tree.map(
+            np.asarray, jspec.make_draft_friendly(jp, jcfg, DEPTH)), cfg,
+            "cpu")
+        for (n, a), (_, b) in zip(out.named_parameters(),
+                                  ref.named_parameters()):
+            assert torch.equal(a, b), n
+        assert not torch.equal(out.blocks[1].moe.w_down,
+                               tp.blocks[1].moe.w_down)
+        assert torch.equal(out.blocks[0].moe.w_down, tp.blocks[0].moe.w_down)
+
+    @pytest.mark.parametrize("backend", BACKENDS)
+    def test_moe_spec_equals_nonspec_equals_jax(self, moe_pair, backend):
+        """The verify pass routes with the plain tick's bias at dropless
+        capacity, the draft with its leading layers' rows: spec decode
+        emits the non-spec tokens, and the JAX spec engine's."""
+        jcfg, cfg, jp, tp, bias = moe_pair
+        runs = {}
+        for k in (0, 3):
+            eng = engine.Engine(tp, cfg, engine.EngineConfig(**_ecfg(
+                spec_decode=k, spec_draft_layers=DEPTH if k else 0,
+                attn_backend=backend)), device="cpu",
+                router_bias=torch.as_tensor(bias))
+            stats = eng.run(_reqs(cfg, 3, steps=(6, 8)), max_ticks=300)
+            assert stats["completed"] == 3
+            runs[k] = (eng, stats)
+        assert runs[3][1]["spec_ticks"] > 0
+        assert runs[3][1]["spec_accepted"] > 0
+        jeng = jengine.Engine(jp, jcfg, jengine.EngineConfig(**_ecfg(
+            spec_decode=3)), router_bias=jnp.asarray(bias))
+        jeng.run([japi.ServeRequest(
+            rid=r.rid, tokens=r.tokens, rclass=r.rclass, arrival=r.arrival,
+            params=japi.SamplingParams(max_new_tokens=r.params.max_new_tokens,
+                                       seed=r.params.seed))
+            for r in _reqs(cfg, 3, steps=(6, 8))], max_ticks=300)
+        assert _tokens_by_rid(runs[3][0]) == _tokens_by_rid(runs[0][0]) \
+            == _tokens_by_rid(jeng)
+        for key in SPEC_COUNTERS:
+            assert runs[3][1][key] == jeng.stats()[key], key
+
+    def test_spec_tick_drafts_and_argmax_match_jax(self, moe_pair):
+        """One spec tick on pools prefilled through both packages: the same
+        drafts and verify argmaxes, logits within 1e-5."""
+        jcfg, cfg, jp, tp, bias = moe_pair
+        table = np.zeros((3, MAXP), np.int32)
+        table[0] = [5, 2, 9, 11]
+        table[1] = [7, 3, 10, 1]
+        jpool = jmodel.init_slot_cache_paged(jcfg, 3, PAGE * MAXP, 12, PAGE)
+        tpool = model.init_slot_cache_paged(cfg, 3, PAGE * MAXP, 12, PAGE,
+                                            "cpu")
+        last = np.zeros((3, 1), np.int32)
+        for slot, plen in {0: 9, 1: 14}.items():
+            toks = _tokens(slot, (1, plen), cfg.vocab_size)
+            jlg, jone = jmodel.prefill(
+                jp, jcfg, {"tokens": jnp.asarray(toks)},
+                jmodel.init_cache(jcfg, 1, PAGE * MAXP),
+                router_bias=jnp.asarray(bias))
+            _, tone = model.prefill(
+                tp, cfg, {"tokens": torch.as_tensor(toks)},
+                model.init_cache(cfg, 1, PAGE * MAXP, "cpu"),
+                router_bias=torch.as_tensor(bias))
+            jpool = jmodel.insert_slot_cache_paged(jpool, jone, jcfg, slot,
+                                                   jnp.asarray(table[slot]))
+            tpool = model.insert_slot_cache_paged(
+                tpool, tone, cfg, slot, torch.as_tensor(table[slot]))
+            last[slot, 0] = int(np.argmax(np.asarray(jlg)[0, -1]))
+        active = np.asarray([True, True, False])
+        dcfg = dataclasses.replace(cfg, capacity_factor=float(
+            cfg.num_experts))
+        jdcfg = dataclasses.replace(jcfg, capacity_factor=float(
+            jcfg.num_experts))
+        jd, jam, _, jlg, _ = jspec.spec_tick(
+            jp, jdcfg, jpool, jnp.asarray(last), jnp.asarray(active),
+            jnp.asarray(table), k=3, depth=DEPTH, return_logits=True,
+            router_bias=jnp.asarray(bias))
+        td, tam, _, tlg, _ = spec.spec_tick(
+            tp, dcfg, tpool, torch.as_tensor(last), torch.as_tensor(active),
+            torch.as_tensor(table), k=3, depth=DEPTH, return_logits=True,
+            router_bias=torch.as_tensor(bias))
+        np.testing.assert_array_equal(td.numpy()[:2], np.asarray(jd)[:2])
+        np.testing.assert_array_equal(tam.numpy()[:2], np.asarray(jam)[:2])
+        _close(tlg[:2], np.asarray(jlg)[:2])
