@@ -83,8 +83,29 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    ``spec_decode=4`` and without: verify runs the grouped matmul at C = 320,
    and the streams must agree by the same rule.
 
-Phases 3-6 each set every launch count to 0 just before they serve and read
-the counts just after. All phases run at full depth.
+7. The paper's VLSI extraction pipeline (``repro_torch.core.vlsi``): the
+   grid-step kernel against its plain version, exactly (max error 0), at
+   (16, 32), (40, 32), (33, 16), (64, 128), (8, 256), (1, 7), (80, 128)
+   and (4096, 4096), on extractor planes and on any int32 (negative labels,
+   cond values outside {0, 1}); its time, plain time and bound at 80 x 128
+   (the observer's plane) and 4096 x 4096. Then ``run_extraction`` on the
+   NAND layout (64 agents, seeds 1 and 2) on the card and on the CPU: the
+   blackboard, cycle count and agents must be equal bit for bit. The
+   paper's Fig. 3 run: the DFF tile (32 transistors, 80 x 128) with 175
+   agents, seed 0, ``record=True`` — cycles beside the JAX package's 2,396,
+   populations at cycles 0, 5, 20, 50, 100, 200 and the last, and the Fig.
+   3 shape (finder crash, labeller spike, labellers die out, all agents end
+   as propagators). The Fig. 4 sweep (NAND at 64, 128, 256 agents, seeds 0
+   and 1) with its log-log slope. Every netlist must be equivalent to the
+   serial oracle, and every run must launch the grid-step kernel exactly 4
+   x (cycles + 1) times (the observer's test before each cycle and at the
+   end) and no other kernel. ``torch.profiler`` traces 20 cycles of the DFF
+   run from cycle 100. Last, the immune straggler scheduler simulates a
+   16-worker, 400-step fleet with one straggler on the card and on the CPU
+   (relative 1e-6) and must beat the static assignment.
+
+Phases 3-7 each set every launch count to 0 just before they drive their
+path and read the counts just after. All phases run at full depth.
 
 The second-to-last lines are one JSON object ``{"kernels": [...]}`` and the
 ``nvidia-smi`` name/power line; the last line is
@@ -1043,6 +1064,265 @@ def moe_phase(torch, configs, eng_mod, traces, model_lib, api, moe_mod,
     return report, gmm_n
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the paper's VLSI extraction pipeline
+# ---------------------------------------------------------------------------
+GRID_SHAPES = [(16, 32), (40, 32), (33, 16), (64, 128), (8, 256), (1, 7),
+               (80, 128), (4096, 4096)]
+FIG3_AGENTS, FIG3_MAX_STEPS = 175, 6000
+FIG3_MARKS = (0, 5, 20, 50, 100, 200)
+# the JAX package's DFF run (175 agents, seed 0) ends after this many
+# cycles; a port equal to it bit for bit ends there too
+DFF_JAX_CYCLES = 2396
+FIG4_AGENTS, FIG4_SEEDS = (64, 128, 256), (0, 1)
+PROFILE_CYCLES, PROFILE_FROM = 20, 100
+
+
+def grid_inputs(torch, gen, h, w, kind: str):
+    """``extractor``: a conductor mask and labels on it (the observer's
+    planes); ``any_int32``: negative labels, cond values outside {0, 1}."""
+    if kind == "extractor":
+        cond = (torch.rand(h, w, generator=gen, device="cuda") < 0.6) \
+            .to(torch.int32)
+        lab = torch.randint(0, 1000, (h, w), generator=gen, device="cuda",
+                            dtype=torch.int32) * cond
+    else:
+        lab = torch.randint(-50, 100, (h, w), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        cond = torch.randint(-3, 4, (h, w), generator=gen, device="cuda",
+                             dtype=torch.int32)
+    return lab, cond
+
+
+def check_grid_step(torch, gen, grid_step, grid_step_ref) -> list:
+    """Exact equality with the plain version on every shape and input
+    kind."""
+    cases = []
+    for h, w in GRID_SHAPES:
+        for kind in ("extractor", "any_int32"):
+            lab, cond = grid_inputs(torch, gen, h, w, kind)
+            out = grid_step(lab, cond)
+            err = (out.long() - grid_step_ref(lab, cond).long()).abs().max()
+            err = int(err.item())
+            check(err == 0, f"grid_step {h}x{w} ({kind}): max error {err}")
+            cases.append({"shape": [h, w], "inputs": kind,
+                          "max_abs_err": err})
+    return cases
+
+
+def time_grid_step(torch, gen, grid_step, grid_step_ref) -> dict:
+    """The kernel, its plain version and the bound at the observer's plane
+    (80 x 128, the DFF tile) and at 4096 x 4096. A call reads labels and
+    cond and writes out once (12 bytes a cell) and does ~9 int32 operations
+    a cell (4 neighbour tests, 4 maxima, the cell's own test), counted
+    against the CUDA-core rate. No single PyTorch call computes this
+    function, so there is no library time."""
+    out = {}
+    for h, w in ((80, 128), (4096, 4096)):
+        lab, cond = grid_inputs(torch, gen, h, w, "extractor")
+        iters = 200 if h * w < 10 ** 6 else 50
+        ms = cuda_ms(torch, lambda: grid_step(lab, cond), iters=iters)
+        plain_ms = cuda_ms(torch, lambda: grid_step_ref(lab, cond),
+                           iters=iters)
+        err = int((grid_step(lab, cond).long()
+                   - grid_step_ref(lab, cond).long()).abs().max().item())
+        bound_ms, by = bound(12 * h * w, 9 * h * w, "float32")
+        out[f"{h}x{w}"] = {"ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": by,
+                           "library_ms": None, "max_abs_err": err}
+    return out
+
+
+def same_run(torch, a, b, what: str) -> None:
+    """Two ``run_extraction`` results equal bit for bit: blackboard, cycle
+    count and every agent field."""
+    (ga, sa, _, aa), (gb, sb, _, ab) = a, b
+    check(sa == sb, f"{what}: {sa} cycles against {sb}")
+    check(np.array_equal(ga, gb), f"{what}: blackboards differ at "
+          f"{np.argwhere(ga != gb)[:5].tolist()}")
+    for f in aa._fields:
+        check(torch.equal(getattr(aa, f).cpu(), getattr(ab, f).cpu()),
+              f"{what}: agents' {f} differ")
+
+
+def netlist_ok(extractor, reference, grid, lay, what: str):
+    sim = extractor.harvest(grid, lay)
+    ok, msg = extractor.netlists_equivalent(sim, reference.extract(lay))
+    check(ok, f"{what}: netlist not equivalent to the oracle: {msg}")
+    return sim
+
+
+def profile_extraction(torch, extractor, am, prng, lay) -> dict:
+    """Where a cycle's time goes: the DFF run (175 agents, seed 0) stepped
+    to cycle PROFILE_FROM, then PROFILE_CYCLES cycles of the run loop (the
+    observer's test, then one step) under ``torch.profiler``. Device busy
+    time is the sum of the kernels' and copies' device time (one stream);
+    the rest of the window's wall time is the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    grid = extractor.make_grid(lay, "cuda")
+    h, w = grid.shape[1:]
+    model = extractor.make_extractor(FIG3_AGENTS, (h, w))
+    ka, key = prng.split(am.as_key(prng.PRNGKey(0), "cuda"), 2).unbind(0)
+    agents = am.uniform_random_agents(ka, FIG3_AGENTS, h, w,
+                                      extractor.STATE_SIZE,
+                                      init_type=extractor.FINDER,
+                                      device="cuda")
+
+    def cycles(t0, n):
+        nonlocal grid, agents, key
+        for t in range(t0, t0 + n):
+            check(not extractor.done_fn(grid), "profile: run ended early")
+            key, sub = prng.split(key, 2).unbind(0)
+            grid, agents = model.step(grid, agents, sub, t)
+
+    cycles(0, PROFILE_FROM)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cycles(PROFILE_FROM, PROFILE_CYCLES)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type != DeviceType.CPU and ev.self_device_time_total]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    n = PROFILE_CYCLES
+    return {"cycles": n, "from_cycle": PROFILE_FROM,
+            "wall_ms_per_cycle": wall_ms / n,
+            "device_ms_per_cycle": busy / n,
+            "idle_share": 1.0 - busy / wall_ms if busy else None,
+            "device_calls_per_cycle": sum(r[1] for r in rows) / n,
+            "grid_step_ms_per_cycle": sum(
+                r[0] for r in rows if "grid_step_kernel" in r[2]) / n,
+            "grid_step_calls_per_cycle": sum(
+                r[1] for r in rows if "grid_step_kernel" in r[2]) / n,
+            "top": [{"kernel": k[:80], "ms_per_cycle": ms / n,
+                     "calls_per_cycle": c / n} for ms, c, k in rows[:8]]}
+
+
+def straggler_trace(seed: int, t: int = 400, w: int = 16) -> np.ndarray:
+    """A 16-worker fleet with one persistent straggler at 0.3x speed (the
+    ``persistent_straggler`` fleet of benchmarks/scheduler_bench.py)."""
+    rng = np.random.default_rng(seed)
+    speeds = 1.0 + 0.05 * rng.standard_normal((t, w))
+    speeds[:, 0] *= 0.3
+    return np.clip(speeds, 1e-3, None).astype(np.float32)
+
+
+def vlsi_phase(torch, counters: dict, seed: int) -> tuple:
+    """Phase 7. Returns (report, kernel report for grid_step)."""
+    from repro_torch import prng
+    from repro_torch.core import agent_model as am
+    from repro_torch.core import scheduler
+    from repro_torch.core.vlsi import extractor, layout, reference
+    from repro_torch.kernels.grid_step import grid_step, grid_step_ref
+    report = {}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    report["grid_step_checks"] = check_grid_step(torch, gen, grid_step,
+                                                 grid_step_ref)
+    timing = time_grid_step(torch, gen, grid_step, grid_step_ref)
+    report["grid_step_timing"] = timing
+
+    def counted(fn, what):
+        out, wall, n = run_counted(torch, counters, fn)
+        cycles = out[1]
+        want = {name: 0 for name in counters}
+        want["grid_step"] = 4 * (cycles + 1)     # one test before each cycle
+        check(n == want, f"{what}: launches {n} != {want}")
+        return out, wall, n["grid_step"]
+
+    # NAND, 64 agents: the card against the port on the CPU, bit for bit
+    nand = layout.nand_layout()
+    report["nand_card_vs_cpu"] = []
+    for s in (1, 2):
+        card, wall, n = counted(lambda: extractor.run_extraction(
+            nand, 64, seed=s, device="cuda"), f"nand seed {s}")
+        t0 = time.perf_counter()
+        host = extractor.run_extraction(nand, 64, seed=s, device="cpu")
+        host_wall = time.perf_counter() - t0
+        same_run(torch, card, host, f"nand seed {s} card vs cpu")
+        for run in (card, host):
+            netlist_ok(extractor, reference, run[0], nand, f"nand seed {s}")
+        report["nand_card_vs_cpu"].append({
+            "seed": s, "cycles": card[1], "equal": True, "card_wall_s": wall,
+            "cpu_wall_s": host_wall, "grid_step_launches": n})
+
+    # Fig. 3: the DFF tile (32 transistors) at 175 agents -- the main path
+    dff = layout.dff_layout()
+    (grid, steps, pops, _), wall, gs_n = counted(
+        lambda: extractor.run_extraction(dff, FIG3_AGENTS, seed=0,
+                                         max_steps=FIG3_MAX_STEPS,
+                                         record=True, device="cuda"),
+        "dff fig3")
+    check(steps < FIG3_MAX_STEPS, f"dff did not finish in {FIG3_MAX_STEPS}")
+    sim = netlist_ok(extractor, reference, grid, dff, "dff fig3")
+    late = steps - 1
+    fin, lab, prop = (pops[:, t] for t in (extractor.FINDER,
+                                           extractor.LABELLER,
+                                           extractor.PROPAGATOR))
+    shape = {"finder_crash": bool(fin[late] < fin[:30].max() / 4),
+             "labeller_spike": bool(lab[:50].max() >= lab[0]),
+             "labellers_die_out": bool(lab[late] == 0),
+             "all_propagators": bool(prop[late] == FIG3_AGENTS),
+             "propagators_start_low": bool(prop[0] < FIG3_AGENTS / 2)}
+    check(all(shape.values()), f"dff fig3 shape: {shape}")
+    report["fig3"] = {
+        "agents": FIG3_AGENTS, "cycles": steps,
+        "jax_cycles_expected": DFF_JAX_CYCLES,
+        "equal_to_jax_count": steps == DFF_JAX_CYCLES, "wall_s": wall,
+        "ms_per_cycle": 1e3 * wall / steps, "equivalent": True,
+        "duplicates": sim.duplicates, "grid_step_launches": gs_n,
+        "shape": shape,
+        "populations": {str(t): pops[t].tolist()
+                        for t in (*FIG3_MARKS, late)},
+        "types": list(extractor.TYPE_NAMES)}
+
+    # Fig. 4: cycles against agents on the NAND (as fig4_speedup --quick)
+    rows = []
+    for n_agents in FIG4_AGENTS:
+        cyc = []
+        for s in FIG4_SEEDS:
+            (g, c, _, _), _, _ = counted(lambda: extractor.run_extraction(
+                nand, n_agents, seed=s, max_steps=8000, device="cuda"),
+                f"fig4 n={n_agents} seed {s}")
+            netlist_ok(extractor, reference, g, nand,
+                       f"fig4 n={n_agents} seed {s}")
+            cyc.append(c)
+        rows.append({"agents": n_agents, "cycles": cyc,
+                     "mean": float(np.mean(cyc))})
+    slope = float(np.polyfit(np.log([r["agents"] for r in rows]),
+                             np.log([r["mean"] for r in rows]), 1)[0])
+    report["fig4"] = {"rows": rows, "loglog_slope": slope}
+
+    report["profile"] = profile_extraction(torch, extractor, am, prng, dff)
+
+    # the immune straggler scheduler: card against CPU, immune vs static
+    trace = straggler_trace(seed)
+    sched = {}
+    for static in (False, True):
+        card = scheduler.simulate(trace, static=static, device="cuda").cpu()
+        host = scheduler.simulate(trace, static=static, device="cpu")
+        err = float(((card - host).abs() / host.abs()).max())
+        check(err <= 1e-6, f"scheduler static={static}: card vs cpu "
+              f"relative error {err}")
+        sched["static" if static else "immune"] = {
+            "total_time": float(card.sum()), "max_rel_err_vs_cpu": err}
+    check(sched["immune"]["total_time"] < sched["static"]["total_time"],
+          f"immune scheduler does not beat static: {sched}")
+    report["scheduler"] = {"workers": trace.shape[1], "steps": trace.shape[0],
+                           **sched}
+
+    kern = {**{k: timing["80x128"][k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}, "launches": gs_n}
+    kern["max_abs_err"] = max(c["max_abs_err"]
+                              for c in report["grid_step_checks"])
+    return report, kern
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="on-card smoke of the port")
     ap.add_argument("--seed", type=int, default=0)
@@ -1059,6 +1339,7 @@ def main() -> int:
     from repro_torch.core import router
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+    from repro_torch.kernels.grid_step import grid_step
     from repro_torch.kernels.moe_gmm import gmm_ref, moe_gmm
     from repro_torch.kernels.paged_attention import (
         paged_attention, paged_attention_ref, paged_attention_verify,
@@ -1230,6 +1511,13 @@ def main() -> int:
                                moe_mod, router, spec_mod, args.seed, counters)
     print("moe serving: " + json.dumps(moe_rep))
 
+    # -- phase 7: the paper's VLSI extraction pipeline ------------------------
+    t0 = time.perf_counter()
+    vlsi_rep, grid_k = vlsi_phase(torch, {**counters, "grid_step": grid_step},
+                                  args.seed)
+    vlsi_rep["phase_s"] = time.perf_counter() - t0
+    print("vlsi extraction: " + json.dumps(vlsi_rep))
+
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1255,6 +1543,9 @@ def main() -> int:
          "launches": gmm_n, **{k: gmm_t[k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")}},
+        {"name": "grid_step", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/grid_step.cu",
+         "replaces": "src/repro/kernels/grid_step/kernel.py:59", **grid_k},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

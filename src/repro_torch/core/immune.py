@@ -11,9 +11,9 @@ machines over float32 tensors (PyTorch port of ``repro/core/immune.py``).
   * dominance                 -> ``dominance_scatter_max`` / ``dominance_resolve``
 
 Every state is float32, as in the JAX package, so host-side admission
-decisions taken from them match the reference's. The serving engine keeps
-them on the CPU (``device`` defaults to ``"cpu"``: this is host control
-state, not model state).
+decisions taken from them match the reference's. The constructors put their
+state on ``cuda`` unless the caller passes ``device``; the serving engine
+passes ``"cpu"``, because its admission control reads them on the host.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ class ImmuneMemory(NamedTuple):
     decay: torch.Tensor  # scalar in [0, 1)
 
     @staticmethod
-    def create(shape, decay: float = 0.99, device="cpu") -> "ImmuneMemory":
+    def create(shape, decay: float = 0.99, device="cuda") -> "ImmuneMemory":
         return ImmuneMemory(value=torch.zeros(shape, dtype=F32, device=device),
                             decay=_t(decay, device))
 
@@ -74,7 +74,7 @@ class TwoStageRegulator(NamedTuple):
     def create(gain: float = 1.0, self_excite: float = 0.15,
                suppression: float = 0.9, couple: float = 0.25,
                leak_r: float = 0.05, leak_s: float = 0.1,
-               device="cpu") -> "TwoStageRegulator":
+               device="cuda") -> "TwoStageRegulator":
         return TwoStageRegulator(
             gain=_t(gain, device), self_excite=_t(self_excite, device),
             suppression=_t(suppression, device), couple=_t(couple, device),
@@ -114,7 +114,7 @@ class AnergyGate(NamedTuple):
 
     @staticmethod
     def create(onset: float = 0.2, revival: float = 0.5, floor: float = 0.0,
-               device="cpu") -> "AnergyGate":
+               device="cuda") -> "AnergyGate":
         return AnergyGate(_t(onset, device), _t(revival, device),
                           _t(floor, device))
 

@@ -49,7 +49,7 @@ class RouterState(NamedTuple):
     steps: torch.Tensor         # () int32 update count
 
 
-def init_router_state(num_experts: int, device="cpu") -> RouterState:
+def init_router_state(num_experts: int, device="cuda") -> RouterState:
     z = torch.zeros((num_experts,), dtype=F32, device=device)
     return RouterState(bias=z, mem=z + 1.0 / num_experts, suppressor=z,
                        steps=torch.zeros((), dtype=torch.int32, device=device))

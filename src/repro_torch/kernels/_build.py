@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``*.cu`` under ``repro_torch/kernels/csrc/`` is compiled by ONE
-``nvcc`` call for ``sm_90a`` into a shared library with a plain C interface,
-named by a hash of the sources, under ``build/kernels/`` at the repository
-root, and loaded with ``ctypes``. Nothing happens at import time: the first
+Every ``*.cu`` under ``repro_torch/kernels/csrc/`` is compiled for
+``sm_90a`` by its own ``nvcc`` process, all started together, and the
+objects are linked into one shared library with a plain C interface, named
+by a hash of the sources, under ``build/kernels/`` at the repository root,
+and loaded with ``ctypes``. Nothing happens at import time: the first
 wrapper that launches a kernel on a CUDA tensor calls :func:`library`, so the
 CPU tests (which have no ``nvcc``) can import every module.
 
@@ -23,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +36,7 @@ SIGNATURES = {
                                      _I, _I, _I, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "repro_moe_gmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_grid_step": [_P, _P, _P, _I, _I, _P],
 }
 
 _LIB = None
@@ -71,16 +73,26 @@ def build() -> Path:
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)      # atomic: a concurrent process never sees half a file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [(p.args[-1], p.communicate()[0], p.returncode) for p in procs]
+        failed = [f"{src} ({rc}):\n{log}" for src, log, rc in logs if rc]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = os.path.join(tmpdir, out.name)
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        # atomic: a concurrent process never sees half a file
+        os.replace(tmp, out)
     return out
 
 

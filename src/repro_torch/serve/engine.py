@@ -189,11 +189,14 @@ class ImmuneAdmission:
     def __init__(self, ecfg: EngineConfig):
         self.ecfg = ecfg
         c = ecfg.num_classes
-        self.memory = immune.ImmuneMemory.create((c,), decay=ecfg.mem_decay)
-        self.regulator = immune.TwoStageRegulator.create()
+        # host control state: every admission decision reads it on the CPU
+        self.memory = immune.ImmuneMemory.create((c,), decay=ecfg.mem_decay,
+                                                 device="cpu")
+        self.regulator = immune.TwoStageRegulator.create(device="cpu")
         self.reg_state = self.regulator.init(())
         self.gate = immune.AnergyGate.create(onset=ecfg.anergy_onset,
-                                             revival=ecfg.anergy_revival)
+                                             revival=ecfg.anergy_revival,
+                                             device="cpu")
         self.anergy = self.gate.init((c,))
         self._blown = np.zeros(c, np.float32)
         self._ok = np.zeros(c, np.float32)

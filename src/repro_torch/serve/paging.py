@@ -152,8 +152,10 @@ class PageAllocator:
         self._clock = 0
         # per-class remembered prefix value: EMA of pages adopted per admission
         # — the immune-memory weight in the eviction score
+        # on the CPU: the host-side eviction score reads it every admission
         self.pin_memory = immune.ImmuneMemory.create((self.num_classes,),
-                                                     decay=pin_decay)
+                                                     decay=pin_decay,
+                                                     device="cpu")
         self._class_w = self.pin_memory.value.numpy()
         self.high_water = 0
         self.cow_forks = 0

@@ -1,7 +1,9 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
-(paged decode, paged verify, flash, the MoE grouped matmul), the verify
-kernel at Sq = 1 against the decode kernel, and the engine (plain and
-speculative, dense and MoE) on the card against its own one-shot oracle.
+(paged decode, paged verify, flash, the MoE grouped matmul, the blackboard
+grid step), the verify kernel at Sq = 1 against the decode kernel, the
+engine (plain and speculative, dense and MoE) on the card against its own
+one-shot oracle, and the VLSI extraction on the card against the port's
+CPU run.
 
 Marked ``cuda``; each test decides inside itself whether a card is visible
 and skips otherwise (never at import time). This file imports no JAX, so it
@@ -14,7 +16,10 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.core import scheduler
+from repro_torch.core.vlsi import extractor, layout, reference
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.grid_step import grid_step, grid_step_ref
 from repro_torch.kernels.moe_gmm import gmm_ref, moe_gmm
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_ref,
@@ -232,3 +237,58 @@ def test_spec_engine_on_card_matches_oneshot(card):
                                  params=req.params)
         assert api.generate(params, cfg, probe, max_cache=96).tokens \
             == req.out_tokens
+
+
+@pytest.mark.parametrize("h,w", [(16, 32), (40, 32), (33, 16), (64, 128),
+                                 (8, 256), (1, 7), (7, 1), (80, 128),
+                                 (4096, 4096)])
+def test_grid_step_kernel_matches_plain(card, h, w):
+    """The extraction path's shape (80, 128), ragged and degenerate shapes
+    and a large plane: exact equality, including negative labels and cond
+    values outside {0, 1}."""
+    g = torch.Generator(device=card).manual_seed(h * 7919 + w)
+    lab = torch.randint(-50, 100, (h, w), generator=g, device=card,
+                        dtype=torch.int32)
+    cond = torch.randint(-3, 4, (h, w), generator=g, device=card,
+                         dtype=torch.int32)
+    n0 = grid_step.launches
+    out = grid_step(lab, cond)
+    torch.cuda.synchronize()
+    assert grid_step.launches == n0 + 1
+    assert torch.equal(out, grid_step_ref(lab, cond))
+    empty = torch.zeros((0, w), dtype=torch.int32, device=card)
+    assert grid_step(empty, empty).shape == (0, w)
+    assert grid_step.launches == n0 + 1
+
+
+@pytest.mark.parametrize("seed", [1])
+def test_vlsi_nand_on_card_equals_cpu(card, seed):
+    """The NAND extraction (64 agents) on the card equals the port's CPU run
+    bit for bit (blackboard, cycles, agents); the observer's fixpoint test
+    launches the grid-step kernel four times before every cycle and once
+    more at the end."""
+    lay = layout.nand_layout()
+    n0 = grid_step.launches
+    grid, steps, _, agents = extractor.run_extraction(lay, 64, seed=seed,
+                                                      device=card)
+    assert grid_step.launches - n0 == 4 * (steps + 1)
+    hgrid, hsteps, _, hagents = extractor.run_extraction(lay, 64, seed=seed,
+                                                         device="cpu")
+    assert steps == hsteps < 4000
+    assert np.array_equal(grid, hgrid)
+    for f in agents._fields:
+        assert torch.equal(getattr(agents, f).cpu(), getattr(hagents, f)), f
+    ok, msg = extractor.netlists_equivalent(extractor.harvest(grid, lay),
+                                            reference.extract(lay))
+    assert ok, msg
+
+
+def test_scheduler_on_card_matches_cpu(card):
+    rng = np.random.default_rng(0)
+    trace = np.clip(1.0 + 0.05 * rng.standard_normal((200, 16)), 1e-3, None)
+    trace[:, 0] *= 0.3
+    trace = trace.astype(np.float32)
+    for static in (False, True):
+        got = scheduler.simulate(trace, static=static, device=card).cpu()
+        ref = scheduler.simulate(trace, static=static, device="cpu")
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)

@@ -22,7 +22,7 @@ jax.config.update("jax_platform_name", "cpu")
 
 class TestImmuneMemory:
     def test_ema_converges_to_constant_signal(self):
-        mem = immune.ImmuneMemory.create((4,), decay=0.9)
+        mem = immune.ImmuneMemory.create((4,), decay=0.9, device="cpu")
         for _ in range(200):
             mem = mem.update(torch.full((4,), 3.0))
         np.testing.assert_allclose(mem.value.numpy(), 3.0, atol=1e-3)
@@ -34,7 +34,7 @@ class TestImmuneMemory:
         """Bounded by the signal's float32 value, up to float32 resolution:
         an absolute 1e-6 is finer than one ulp at |x| ~ 8.6 (~9.5e-7), and
         the pinned example lands 1e-6 above float64 x in both packages."""
-        mem = immune.ImmuneMemory.create((1,), decay=decay)
+        mem = immune.ImmuneMemory.create((1,), decay=decay, device="cpu")
         for _ in range(50):
             mem = mem.update([x])
         bound = abs(np.float32(x)) * (1 + 4 * np.finfo(np.float32).eps)
@@ -42,7 +42,7 @@ class TestImmuneMemory:
 
     def test_ema_equals_jax_on_the_pinned_example(self):
         decay, x = 0.3021891507847941, 8.626301665806825
-        mem = immune.ImmuneMemory.create((1,), decay=decay)
+        mem = immune.ImmuneMemory.create((1,), decay=decay, device="cpu")
         jmem = jimmune.ImmuneMemory.create((1,), decay=decay)
         for _ in range(50):
             mem = mem.update([x])
@@ -50,14 +50,14 @@ class TestImmuneMemory:
         assert float(mem.value[0]) == float(jmem.value[0])
 
     def test_values_stay_float32(self):
-        mem = immune.ImmuneMemory.create((3,), decay=0.8)
+        mem = immune.ImmuneMemory.create((3,), decay=0.8, device="cpu")
         mem = mem.update(np.asarray([1.0, 2.0, 3.0], np.float64))
         assert mem.value.dtype == torch.float32
 
 
 class TestTwoStageRegulator:
     def test_fast_rise_then_delayed_suppression(self):
-        reg = immune.TwoStageRegulator.create()
+        reg = immune.TwoStageRegulator.create(device="cpu")
         state = reg.init(())
         trace = []
         for _ in range(300):
@@ -70,7 +70,7 @@ class TestTwoStageRegulator:
         assert trace[-1] > 0.1, "suppression killed the response entirely"
 
     def test_bounded_no_runaway(self):
-        reg = immune.TwoStageRegulator.create(self_excite=0.3)
+        reg = immune.TwoStageRegulator.create(self_excite=0.3, device="cpu")
         state = reg.init((8,))
         for _ in range(2000):
             state = reg.step(state, torch.ones(8))
@@ -80,7 +80,7 @@ class TestTwoStageRegulator:
     @hypothesis.given(stim=st.floats(0.0, 5.0))
     @hypothesis.settings(deadline=None, max_examples=15)
     def test_nonnegative_states(self, stim):
-        reg = immune.TwoStageRegulator.create()
+        reg = immune.TwoStageRegulator.create(device="cpu")
         state = reg.init(())
         for _ in range(100):
             state = reg.step(state, stim)
@@ -89,7 +89,7 @@ class TestTwoStageRegulator:
 
 class TestAnergy:
     def test_uncostimulated_becomes_anergic_and_revives(self):
-        gate = immune.AnergyGate.create(onset=0.5, revival=0.5)
+        gate = immune.AnergyGate.create(onset=0.5, revival=0.5, device="cpu")
         state = gate.init(())
         for _ in range(20):
             state = gate.step(state, stimulus=1.0, costimulus=0.0)
@@ -100,7 +100,7 @@ class TestAnergy:
         assert float(state.level) < 0.1
 
     def test_costimulated_stays_active(self):
-        gate = immune.AnergyGate.create()
+        gate = immune.AnergyGate.create(device="cpu")
         state = gate.init(())
         for _ in range(50):
             state = gate.step(state, 1.0, 1.0)
@@ -146,10 +146,10 @@ class TestAgainstJax:
     def test_regulator_and_memory_trajectories(self):
         rng = np.random.default_rng(0)
         stims = rng.uniform(0, 2, size=(200, 3)).astype(np.float32)
-        reg, jreg = immune.TwoStageRegulator.create(), \
+        reg, jreg = immune.TwoStageRegulator.create(device="cpu"), \
             jimmune.TwoStageRegulator.create()
         s, js = reg.init((3,)), jreg.init((3,))
-        mem = immune.ImmuneMemory.create((3,), decay=0.8)
+        mem = immune.ImmuneMemory.create((3,), decay=0.8, device="cpu")
         jmem = jimmune.ImmuneMemory.create((3,), decay=0.8)
         for x in stims:
             s, js = reg.step(s, torch.as_tensor(x)), jreg.step(js, jnp.asarray(x))
@@ -163,7 +163,7 @@ class TestAgainstJax:
 
     def test_anergy_trajectory(self):
         rng = np.random.default_rng(1)
-        gate = immune.AnergyGate.create(onset=0.34, revival=0.3)
+        gate = immune.AnergyGate.create(onset=0.34, revival=0.3, device="cpu")
         jgate = jimmune.AnergyGate.create(onset=0.34, revival=0.3)
         s, js = gate.init((4,)), jgate.init((4,))
         for _ in range(100):

@@ -2,13 +2,15 @@
 against the JAX package's Pallas kernel (interpret mode) and its jnp oracle,
 and the wrappers' contract checks and CPU dispatch. The kernels: paged
 decode, the paged verify step of self-speculative decoding, flash attention,
-the MoE grouped matmul.
+the MoE grouped matmul, the blackboard grid step (exact, int32).
 
 Inputs are drawn with numpy from a seed and handed to both packages.
 Tolerances (as in tests/test_kernels.py): paged 1e-5 fp32, flash 5e-5 fp32,
 5e-2 bf16; grouped matmul 2e-4 fp32, 2e-1 bf16. The CUDA kernels themselves run only on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
+import hypothesis
+import hypothesis.strategies as st
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,9 @@ import torch
 
 from repro.kernels.flash_attention import attention_ref as jax_attention_ref
 from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.core.vlsi import extractor as jax_extractor
+from repro.kernels.grid_step import grid_step as jax_grid_step
+from repro.kernels.grid_step import grid_step_ref as jax_grid_step_ref
 from repro.kernels.moe_gmm import gmm_ref as jax_gmm_ref
 from repro.kernels.moe_gmm import moe_gmm as jax_gmm
 from repro.kernels.paged_attention import paged_attention as jax_paged
@@ -25,7 +30,9 @@ from repro.kernels.paged_attention import \
     paged_attention_verify as jax_verify
 from repro.kernels.paged_attention import \
     paged_attention_verify_ref as jax_verify_ref
+from repro_torch.core.vlsi import extractor, layout
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.grid_step import grid_step, grid_step_ref
 from repro_torch.kernels.moe_gmm import gmm_ref, moe_gmm
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_ref,
@@ -336,6 +343,25 @@ class TestWrappers:
         with pytest.raises(ValueError, match="device"):
             flash_attention(x.to("meta"), y, y)
 
+    def test_grid_step_counts_no_launch_and_checks_contract(self):
+        lab, cond = (torch.as_tensor(a) for a in grid_fixture(0, 6, 5))
+        n0 = grid_step.launches
+        assert torch.equal(grid_step(lab, cond, band=3),
+                           grid_step_ref(lab, cond))
+        assert grid_step.launches == n0
+        with pytest.raises(TypeError, match="int32"):
+            grid_step(lab.long(), cond)
+        with pytest.raises(TypeError, match="int32"):
+            grid_step(lab, cond.bool())
+        with pytest.raises(ValueError, match="bad shapes"):
+            grid_step(lab[None], cond[None])
+        with pytest.raises(ValueError, match="bad shapes"):
+            grid_step(lab, cond[:, :4].contiguous())
+        with pytest.raises(ValueError, match="contiguous"):
+            grid_step(lab.t(), cond.t())
+        with pytest.raises(ValueError, match="device"):
+            grid_step(lab.to("meta"), cond)
+
     def test_gmm_counts_no_launch_and_checks_contract(self):
         x, w, sizes = (torch.as_tensor(a)
                        for a in gmm_fixture(0, 3, 10, 8, 6, masked=False))
@@ -356,3 +382,93 @@ class TestWrappers:
             moe_gmm(x.transpose(1, 2).contiguous().transpose(1, 2), w, sizes)
         with pytest.raises(ValueError, match="device"):
             moe_gmm(x.to("meta"), w, sizes)
+
+
+def grid_fixture(seed, h, w, p_cond=0.6, lo=0, hi=50):
+    """Labels in [lo, hi) and a conductor mask; labels zeroed off the mask
+    when ``lo`` is 0 (as the extractor's planes are)."""
+    rng = np.random.default_rng(seed)
+    cond = (rng.random((h, w)) < p_cond).astype(np.int32)
+    lab = rng.integers(lo, hi, (h, w)).astype(np.int32)
+    if lo == 0:
+        lab = lab * cond
+    return lab, cond
+
+
+@pytest.mark.parametrize("h,w,band", [(16, 32, 8), (40, 32, 8), (33, 16, 8),
+                                      (64, 128, 16), (8, 256, 8)])
+def test_grid_step_plain_matches_jax(h, w, band):
+    """The shapes of tests/test_kernels.py: exact against the Pallas kernel
+    (interpret mode) and the JAX oracle."""
+    lab, cond = grid_fixture(h * w, h, w)
+    out = grid_step(torch.as_tensor(lab), torch.as_tensor(cond), band=band)
+    assert out.dtype == torch.int32
+    ref = np.asarray(jax_grid_step(jnp.asarray(lab), jnp.asarray(cond),
+                                   band=band, interpret=True))
+    assert np.array_equal(out.numpy(), ref)
+    assert np.array_equal(out.numpy(), np.asarray(
+        jax_grid_step_ref(jnp.asarray(lab), jnp.asarray(cond))))
+
+
+@pytest.mark.parametrize("h,w", [(1, 7), (7, 1), (33, 16)])
+def test_grid_step_any_int32_matches_jax_ref(h, w):
+    """Negative labels and cond values outside {0, 1} (the test is cond >
+    0); degenerate planes."""
+    rng = np.random.default_rng(h + w)
+    lab = rng.integers(-50, 100, (h, w)).astype(np.int32)
+    cond = rng.integers(-3, 4, (h, w)).astype(np.int32)
+    out = grid_step_ref(torch.as_tensor(lab), torch.as_tensor(cond))
+    ref = jax_grid_step_ref(jnp.asarray(lab), jnp.asarray(cond))
+    assert np.array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_grid_step_reaches_fixpoint_like_components():
+    """Iterating the step floods each conductor component with its max
+    label."""
+    cond = torch.zeros((16, 16), dtype=torch.int32)
+    cond[2, 2:10] = 1
+    cond[8:14, 5] = 1
+    lab = torch.zeros((16, 16), dtype=torch.int32)
+    lab[2, 3], lab[10, 5] = 7, 9
+    for _ in range(20):
+        lab = grid_step(lab, cond)
+    assert (lab[2, 2:10] == 7).all() and (lab[8:14, 5] == 9).all()
+    assert int((lab != 0).sum()) == 8 + 6
+
+
+@hypothesis.settings(deadline=None, max_examples=12)
+@hypothesis.given(seed=st.integers(0, 10_000), h=st.sampled_from([8, 24, 40]),
+                  w=st.sampled_from([16, 32]))
+def test_grid_step_matches_pallas_and_monotone(seed, h, w):
+    """As tests/test_properties.py: equal to the Pallas kernel (interpret
+    mode), monotone, non-conductor cells unchanged."""
+    lab, cond = grid_fixture(seed, h, w, p_cond=0.55, hi=99)
+    out = grid_step(torch.as_tensor(lab), torch.as_tensor(cond)).numpy()
+    ref = np.asarray(jax_grid_step(jnp.asarray(lab), jnp.asarray(cond),
+                                   interpret=True))
+    assert np.array_equal(out, ref)
+    assert (out >= lab).all(), "max-diffusion must be monotone"
+    assert (out[cond == 0] == lab[cond == 0]).all(), \
+        "non-conductor cells must not change"
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_wrap_shift_max_matches_jax_and_kernel_on_margins(seed):
+    """The extractor's own wrap step equals JAX's ``_shift_max`` on any
+    plane, and equals the zero-padded kernel step where the mask leaves the
+    outer rows and columns empty (the margin every layout carries)."""
+    lab, cond = grid_fixture(seed, 24, 20)
+    mask = cond > 0
+    ref = np.asarray(jax_extractor._shift_max(jnp.asarray(lab),
+                                              jnp.asarray(mask)))
+    got = extractor._shift_max(torch.as_tensor(lab), torch.as_tensor(mask))
+    assert np.array_equal(got.numpy(), ref)
+
+    lay = layout.nand_layout()
+    rng = np.random.default_rng(seed)
+    for plane in (layout.M1, layout.POLY, layout.DIFF):
+        mask = torch.as_tensor(lay[plane] > 0)
+        lab = torch.as_tensor(rng.integers(0, 40, mask.shape).astype(
+            np.int32)) * mask
+        assert torch.equal(extractor._shift_max(lab, mask),
+                           grid_step(lab, mask.to(torch.int32)))

@@ -75,3 +75,46 @@ def test_categorical_equal():
     got = prng.categorical(torch.as_tensor(np.asarray(keys).astype(np.int64)),
                            torch.as_tensor(logits))
     assert (ref == got.numpy()).all()
+
+
+@pytest.mark.parametrize("seed,num", [(0, 2), (1, 3), (42, 5),
+                                      (2 ** 32 - 1, 2)])
+def test_split_equal(seed, num):
+    ref = np.asarray(jax.random.split(jax.random.PRNGKey(seed), num))
+    assert (ref.astype(np.int64) == prng.split(_key(seed), num).numpy()).all()
+
+
+def test_split_batched_equal():
+    keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.PRNGKey(3), i))(
+        jnp.arange(6))
+    ref = np.asarray(jax.vmap(lambda k: jax.random.split(k, 3))(keys))
+    got = prng.split(torch.as_tensor(np.asarray(keys).astype(np.int64)), 3)
+    assert got.shape == (6, 3, 2)
+    assert (ref.astype(np.int64) == got.numpy()).all()
+
+
+@pytest.mark.parametrize("shape", [(), (4,), (175,)])
+@pytest.mark.parametrize("lo,hi", [(0, 4), (1, 39), (1, 79)])
+@pytest.mark.parametrize("seed", [0, 5])
+def test_randint_equal(shape, lo, hi, seed):
+    ref = np.asarray(jax.random.randint(jax.random.PRNGKey(seed), shape, lo,
+                                        hi, jnp.int32))
+    got = prng.randint(_key(seed), shape, lo, hi)
+    assert got.dtype == torch.int32 and tuple(got.shape) == shape
+    assert (ref == got.numpy()).all()
+
+
+def test_randint_batched_scalar_draws_equal():
+    """Per-agent scalar draws (the extractor's random walk step)."""
+    keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.PRNGKey(9), i))(
+        jnp.arange(64))
+    ref = np.asarray(jax.vmap(lambda k: jax.random.randint(k, (), 0, 4))(keys))
+    got = prng.randint(torch.as_tensor(np.asarray(keys).astype(np.int64)), (),
+                       0, 4)
+    assert got.shape == (64,) and (ref == got.numpy()).all()
+
+
+def test_randint_empty_span_returns_minval():
+    got = prng.randint(_key(0), (8,), 5, 5)
+    ref = np.asarray(jax.random.randint(jax.random.PRNGKey(0), (8,), 5, 5))
+    assert (got.numpy() == 5).all() and (ref == 5).all()

@@ -79,7 +79,7 @@ def test_update_router_state_200_steps_matches_jax(mode):
     rng = np.random.default_rng(7)
     cfg = router.RouterConfig(mode=mode)
     jcfg = jrouter.RouterConfig(mode=mode)
-    st = router.init_router_state(e)
+    st = router.init_router_state(e, device="cpu")
     jst = jrouter.init_router_state(e)
     skew = np.linspace(2.0, 0.2, e)
     for _ in range(200):
