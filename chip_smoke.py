@@ -13,27 +13,36 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    paged verify step at the same width for Sq in {1, 2, 5, 7} with ragged
    first positions (page boundaries, rows past the table's capacity), plus
    MHA and MQA, and at Sq = 1 bitwise the decode kernel at lengths = pos + 1;
-   flash attention at H=15, Hkv=5, D=64 for S in {1, 17, 128, 383, 1000},
-   causal and not; the MoE grouped matmul at granite-moe-3b-a800m's widths
-   (E, C, D, F) = (40, 64, 1536, 512), (40, 64, 512, 1536), (40, 320, 1536,
-   512), (40, 252, 1536, 512) and at (3, 37, 96, 80), with seeded group
-   sizes that include 0 and C and live values in the rows past each group.
-   Tolerances: 1e-5 (paged, verify) / 5e-5 (flash) in fp32, 5e-2 in bf16;
-   grouped matmul allclose 2e-4 fp32 / 2e-1 bf16 with its dead rows exactly
-   0.0. Then each kernel, its plain version and a library call (SDPA for
-   flash, ``torch.bmm`` for the grouped matmul) are timed with CUDA events at
-   main-path shapes, beside the bound from the bytes and flops those shapes
-   need (verify: B=8, Sq=5 at the spec trace's positions; the grouped matmul
-   at the decode tick's gate / up shape with one tick's group sizes; no
-   single PyTorch call gathers pages, so paged decode and verify have no
-   library time).
+   flash attention at H=15, Hkv=5, D=64 for S in {1, 17, 64, 65, 128, 383,
+   1000} and at B=2 for D in {16, 32, 128}, S in {64, 65, 383}, causal and
+   not; the MoE grouped matmul at granite-moe-3b-a800m's widths (E, C, D, F)
+   = (40, 64, 1536, 512), (40, 64, 512, 1536), (40, 320, 1536, 512), (40,
+   252, 1536, 512) and at (3, 37, 96, 80), with seeded group sizes that
+   include 0 and C, and live values, then NaN, in the rows past each group.
+   Tolerances: 1e-5 (paged, verify) / 5e-5 (flash) in fp32, 5e-2 in bf16,
+   and for flash also the worst row's ||out - ref|| / ||ref|| (1e-4 fp32,
+   2e-2 bf16: a KV tile lost on late rows fails it); grouped matmul allclose 2e-4 fp32 / 2e-1 bf16 with its dead rows exactly
+   0.0. Flash and the grouped matmul have two bodies each (bf16 on the
+   tensor cores, "mma"; fp32 on CUDA cores); every check must count its
+   launch under the body ``kernel_path`` names. Then each kernel, its plain
+   version and a library call (SDPA for flash, ``torch.bmm`` for the
+   grouped matmul) are timed with CUDA events at main-path shapes, beside
+   the bound from the bytes and flops those shapes need (verify: B=8, Sq=5
+   at the spec trace's positions; flash at S = 1000 and 383; the grouped
+   matmul at the decode tick's gate / up shape with one tick's group sizes
+   and at a 1000-token prefill's (C = 252); no single PyTorch call gathers
+   pages, so paged decode and verify have no library time). Flash and the
+   grouped matmul, whose calls at these shapes take about as long on the
+   host as on the device, also report ``device_ms`` (``torch.profiler``'s
+   device time a call) for the kernel and the library call.
 3. Engine: smollm-360m at its full published config (32 layers, d_model
    960, 15/5 heads, head_dim 64, d_ff 2560, vocab 49,152, bf16; random
    weights from ``--seed``) serves 16 requests of ``synthetic_trace``
    (prompts 100 / 383, heavy prompt 1000, 32 / 128 new tokens, two seeded
    lanes at temperature 0.8) through ``Engine.run`` with one-shot prefill.
    Every request must finish with its full token budget, the paged kernel
-   must have launched 32 x decode ticks and flash 32 x prefills. The same
+   must have launched 32 x decode ticks and flash 32 x prefills, every one
+   of them on the tensor-core body. The same
    trace is served again on the torch attention backend: per request the
    logits must agree within rtol = atol = 5e-2 (the allclose form of
    tests/test_kernels.py) up to the first token where the two runs differ,
@@ -70,7 +79,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    0.8) on 8 slots with one-shot prefill, on the kernel and the torch
    backends. Every request must finish with its budget; the grouped matmul
    must have launched exactly 3 x 32 x (decode ticks + prefills), paged
-   decode 32 x decode ticks and flash 32 x prefills. The same trace on the
+   decode 32 x decode ticks and flash 32 x prefills, the grouped matmul and
+   flash (here and in the spec run below) every time on the tensor-core
+   body. The same trace on the
    same weights in fp32 must agree between the two backends by the rule of
    phase 3 at 1e-3; in bf16 (where routing flips at near-tied experts move
    the logits of any two roundings beyond the 1e-1 rule, see
@@ -130,6 +141,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"paged": {"float32": 1e-5, "bfloat16": 5e-2},
        "flash": {"float32": 5e-5, "bfloat16": 5e-2},
        "gmm": {"float32": 2e-4, "bfloat16": 2e-1}}
+# Flash beside TOL["flash"]: the worst (batch, head, query row) of
+# ||out - ref|| / ||ref|| over the head dim. A late row's values at S = 1000
+# are ~1/sqrt(S) ~ 0.03, below the absolute bf16 limit, while one 64-row KV
+# tile dropped from such a row moves this ratio by ~8/sqrt(S) ~ 0.25.
+FLASH_ROW_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # (rtol, atol) on logits. bf16 at full depth: the torch backend rounds the
 # scores and the probabilities to bf16 before their products (the JAX
 # package's _sdpa), the kernels keep both in fp32 (as the TPU kernels do);
@@ -174,6 +190,25 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device time of one call of ``fn``: its kernels' device time,
+    summed by ``torch.profiler`` over ``iters`` calls after a warm-up call.
+    CUDA events around back-to-back calls read the host's launch rate
+    instead where a call's host time (a wrapper's checks, allocation and
+    ``ctypes`` call) exceeds its kernel's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type != DeviceType.CPU)
+    return busy / 1e3 / iters
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -286,23 +321,51 @@ def check_verify(torch, gen, verify, verify_ref, paged_attention) -> list:
     return cases
 
 
-def check_flash(torch, gen, flash_attention, attention_ref) -> list:
+# (B, H, Hkv, D, S): smollm-360m's width at the engine's prompt lengths
+# (both tile edges: 64, 65), then every other head dim at two sequences
+FLASH_CASES = ([(1, 15, 5, 64, s) for s in (1, 17, 64, 65, 128, 383, 1000)]
+               + [(2, 15, 5, d, s) for d in (16, 32, 128)
+                  for s in (64, 65, 383)])
+
+
+def row_rel_err(out, ref) -> float:
+    """The worst row of ``||out - ref|| / ||ref||`` over the last dim."""
+    o, r = out.float(), ref.float()
+    return ((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)
+            ).max().item()
+
+
+def check_flash(torch, gen, flash_attention, attention_ref,
+                kernel_path) -> list:
+    """Every case in fp32 and bf16, causal and not, within TOL["flash"] and
+    FLASH_ROW_TOL; each launch must be counted under the body
+    ``kernel_path`` names."""
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for s in (1, 17, 128, 383, 1000):
+        for (b, h, hk, d, s) in FLASH_CASES:
             for causal in (True, False):
-                q = torch.randn(1, 15, s, 64, generator=gen, device="cuda").to(dtype)
-                k = torch.randn(1, 5, s, 64, generator=gen, device="cuda").to(dtype)
-                v = torch.randn(1, 5, s, 64, generator=gen, device="cuda").to(dtype)
+                q = torch.randn(b, h, s, d, generator=gen, device="cuda").to(dtype)
+                k = torch.randn(b, hk, s, d, generator=gen, device="cuda").to(dtype)
+                v = torch.randn(b, hk, s, d, generator=gen, device="cuda").to(dtype)
+                path = kernel_path(dtype)
+                p0 = flash_attention.launches_by_path[path]
                 out = flash_attention(q, k, v, causal=causal)
                 torch.cuda.synchronize()
+                check(flash_attention.launches_by_path[path] == p0 + 1,
+                      f"flash {name} did not take the {path} body")
                 ref = attention_ref(q, k, v, causal=causal)
                 err = (out.float() - ref.float()).abs().max().item()
+                rel = row_rel_err(out, ref)
                 check(err <= TOL["flash"][name],
-                      f"flash {name} S={s} causal={causal} err {err}")
-                cases.append({"s": s, "causal": causal, "dtype": name,
-                              "max_abs_err": err})
+                      f"flash {name} B={b} D={d} S={s} causal={causal} "
+                      f"err {err}")
+                check(rel <= FLASH_ROW_TOL[name],
+                      f"flash {name} B={b} D={d} S={s} causal={causal} "
+                      f"row error {rel}")
+                cases.append({"b": b, "d": d, "s": s, "causal": causal,
+                              "dtype": name, "path": path,
+                              "max_abs_err": err, "row_rel_err": rel})
     return cases
 
 
@@ -378,31 +441,39 @@ def time_verify(torch, gen, verify, verify_ref, positions: list) -> dict:
 
 def time_flash(torch, gen, flash_attention, attention_ref) -> dict:
     """Main-path prefill shape: the trace's heavy 1000-token prompt at
-    smollm width, bf16, causal. SDPA runs on K/V expanded to 15 heads
-    (expanded outside the timed region)."""
+    smollm width, bf16, causal; then its 383-token prompt (under ``s383``).
+    SDPA runs on K/V expanded to 15 heads (expanded outside the timed
+    region)."""
     import torch.nn.functional as F
-    b, h, hk, s, d = 1, 15, 5, 1000, 64
-    q = torch.randn(b, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
-    k = torch.randn(b, hk, s, d, generator=gen, device="cuda").to(torch.bfloat16)
-    v = torch.randn(b, hk, s, d, generator=gen, device="cuda").to(torch.bfloat16)
-    ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True))
-    plain_ms = cuda_ms(torch, lambda: attention_ref(q, k, v, causal=True),
-                       iters=20)
-    ke = k.repeat_interleave(h // hk, dim=1)
-    ve = v.repeat_interleave(h // hk, dim=1)
-    lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, ke, ve, is_causal=True))
-    out = flash_attention(q, k, v, causal=True)
-    err = (out.float() - attention_ref(q, k, v, causal=True).float()
-           ).abs().max().item()
-    es = 2
-    nbytes = (2 * b * h * s * d + 2 * b * hk * s * d) * es
-    flops = 4 * b * h * d * (s * (s + 1) // 2)
-    bound_ms, by = bound(nbytes, flops, "bfloat16")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
-            "shape": {"B": b, "H": h, "Hkv": hk, "S": s, "D": d,
-                      "causal": True, "dtype": "bfloat16"}}
+    res = {}
+    for s in (1000, 383):
+        b, h, hk, d = 1, 15, 5, 64
+        q = torch.randn(b, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn(b, hk, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn(b, hk, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+        ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True))
+        plain_ms = cuda_ms(torch, lambda: attention_ref(q, k, v, causal=True),
+                           iters=20)
+        ke = k.repeat_interleave(h // hk, dim=1)
+        ve = v.repeat_interleave(h // hk, dim=1)
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, ke, ve, is_causal=True))
+        dev_ms = device_ms(torch, lambda: flash_attention(q, k, v, causal=True))
+        lib_dev_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, ke, ve, is_causal=True))
+        out = flash_attention(q, k, v, causal=True)
+        err = (out.float() - attention_ref(q, k, v, causal=True).float()
+               ).abs().max().item()
+        es = 2
+        nbytes = (2 * b * h * s * d + 2 * b * hk * s * d) * es
+        flops = 4 * b * h * d * (s * (s + 1) // 2)
+        bound_ms, by = bound(nbytes, flops, "bfloat16")
+        res[s] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                  "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+                  "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
+                  "shape": {"B": b, "H": h, "Hkv": hk, "S": s, "D": d,
+                            "causal": True, "dtype": "bfloat16"}}
+    return {**res[1000], "s383": res[383]}
 
 
 # (E, C, D, F): granite-moe-3b-a800m's gate/up and down products at decode
@@ -420,11 +491,12 @@ def decode_group_sizes(torch, gen, e: int, tokens: int, k: int):
         torch.int32)
 
 
-def check_gmm(torch, gen, moe_gmm, gmm_ref) -> list:
+def check_gmm(torch, gen, moe_gmm, gmm_ref, kernel_path) -> list:
     """Every shape in fp32 and bf16, seeded group sizes with 0 and C, rows
-    past each group holding live values: allclose to the plain version at
-    the tolerances of tests/test_kernels.py, dead rows and empty groups
-    exactly 0.0."""
+    past each group holding live values, then NaN: allclose to the plain
+    version at the tolerances of tests/test_kernels.py, dead rows and empty
+    groups exactly 0.0; each launch counted under the body ``kernel_path``
+    names."""
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -436,30 +508,41 @@ def check_gmm(torch, gen, moe_gmm, gmm_ref) -> list:
             sizes = torch.randint(0, c + 1, (e,), generator=gen,
                                   device="cuda", dtype=torch.int32)
             sizes[0], sizes[-1] = 0, c
-            out = moe_gmm(x, w, sizes)
-            torch.cuda.synchronize()
-            ref = gmm_ref(x, w, sizes)
-            diff = (out.float() - ref.float()).abs()
-            err = diff.max().item()
-            over = (diff / (tol + tol * ref.float().abs())).max().item()
-            check(over <= 1.0, f"gmm {name} {(e, c, d, f)} err {err} "
-                  f"({over:.2f}x the allclose bound)")
             dead = torch.arange(c, device="cuda")[None, :] >= sizes[:, None]
-            check(bool((out[dead] == 0).all()),
-                  f"gmm {name} {(e, c, d, f)}: a dead row is not exactly 0")
-            cases.append({"shape": [e, c, d, f], "dtype": name,
-                          "max_abs_err": err, "dead_rows": int(dead.sum())})
+            path = kernel_path(dtype, d, f)
+            for dead_rows in ("live values", "NaN"):
+                if dead_rows == "NaN":
+                    x[dead] = float("nan")
+                p0 = moe_gmm.launches_by_path[path]
+                out = moe_gmm(x, w, sizes)
+                torch.cuda.synchronize()
+                check(moe_gmm.launches_by_path[path] == p0 + 1,
+                      f"gmm {name} {(e, c, d, f)} did not take the {path} "
+                      f"body")
+                ref = gmm_ref(x, w, sizes)
+                diff = (out.float() - ref.float()).abs()
+                err = diff.max().item()
+                over = (diff / (tol + tol * ref.float().abs())).max().item()
+                check(over <= 1.0, f"gmm {name} {(e, c, d, f)} dead rows "
+                      f"{dead_rows}: err {err} ({over:.2f}x the allclose "
+                      f"bound)")
+                check(bool((out[dead] == 0).all()),
+                      f"gmm {name} {(e, c, d, f)} dead rows {dead_rows}: a "
+                      f"dead row is not exactly 0")
+                cases.append({"shape": [e, c, d, f], "dtype": name,
+                              "path": path, "dead_rows_hold": dead_rows,
+                              "max_abs_err": err,
+                              "dead_rows": int(dead.sum())})
     return cases
 
 
-def time_gmm(torch, gen, moe_gmm, gmm_ref) -> dict:
-    """Decode shape of the gate / up product (E=40, C=64, D=1536, F=512,
-    bf16) with one decode tick's group sizes (8 lanes x top-8 over 40
-    experts). Four weight copies (252 MB) rotate so the weights come from
-    HBM, as across the 32 layers of a tick. ``torch.bmm`` on the same
-    (E, C, D) x (E, D, F) computes every row of every expert."""
-    e, c, d, f = 40, 64, 1536, 512
-    sizes = decode_group_sizes(torch, gen, e, 8, 8)
+def time_gmm_at(torch, gen, moe_gmm, gmm_ref, shape, sizes) -> dict:
+    """The gate / up product at ``shape`` (bf16) with ``sizes`` live rows
+    per expert, dead rows of x zero as the dispatch leaves them. Four weight
+    copies (252 MB) rotate so the weights come from HBM, as across the 32
+    layers of a tick. ``torch.bmm`` on the same (E, C, D) x (E, D, F)
+    computes every row of every expert."""
+    e, c, d, f = shape
     x = torch.randn(e, c, d, generator=gen, device="cuda").to(torch.bfloat16)
     x = torch.where(torch.arange(c, device="cuda")[None, :, None]
                     < sizes[:, None, None], x, torch.zeros((), device="cuda",
@@ -471,6 +554,8 @@ def time_gmm(torch, gen, moe_gmm, gmm_ref) -> dict:
     plain_ms = cuda_ms(torch, lambda: gmm_ref(x, ws[next(it) % 4], sizes),
                        iters=20)
     lib_ms = cuda_ms(torch, lambda: torch.bmm(x, ws[next(it) % 4]))
+    dev_ms = device_ms(torch, lambda: moe_gmm(x, ws[next(it) % 4], sizes))
+    lib_dev_ms = device_ms(torch, lambda: torch.bmm(x, ws[next(it) % 4]))
     err = (moe_gmm(x, ws[0], sizes).float()
            - gmm_ref(x, ws[0], sizes).float()).abs().max().item()
     es = 2
@@ -483,11 +568,27 @@ def time_gmm(torch, gen, moe_gmm, gmm_ref) -> dict:
     flops = 2 * rows * d * f
     bound_ms, by = bound(nbytes, flops, "bfloat16")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
             "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
             "shape": {"E": e, "C": c, "D": d, "F": f, "dtype": "bfloat16",
                       "group_sizes": live, "live_rows": rows,
                       "live_experts": experts,
                       "library": "torch.bmm over all C rows"}}
+
+
+def time_gmm(torch, gen, moe_gmm, gmm_ref) -> dict:
+    """Decode shape of the gate / up product (E=40, C=64, D=1536, F=512)
+    with one decode tick's group sizes (8 lanes x top-8 over 40 experts);
+    then (under ``prefill``) a 1000-token prompt's gate / up product at its
+    capacity C = 252 (cf 1.25), its 8,000 assignments drawn uniformly and
+    cut at C."""
+    e = 40
+    res = time_gmm_at(torch, gen, moe_gmm, gmm_ref, (e, 64, 1536, 512),
+                      decode_group_sizes(torch, gen, e, 8, 8))
+    pre = decode_group_sizes(torch, gen, e, 1000, 8).clamp(max=252)
+    res["prefill"] = time_gmm_at(torch, gen, moe_gmm, gmm_ref,
+                                 (e, 252, 1536, 512), pre)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -559,7 +660,7 @@ def profile_decode(torch, eng_mod, params, cfg, reqs, ecfg,
     busy = sum(r[0] for r in rows)
     ours = {name: sum(r[0] for r in rows if name in r[2]) / ticks
             for name in ("paged_decode_kernel", "paged_verify_kernel",
-                         "moe_gmm_kernel")}
+                         "moe_gmm")}
     return {"ticks": ticks, "spec_ticks": eng.spec_ticks,
             "wall_ms_per_tick": wall_ms / ticks,
             "device_ms_per_tick": busy / ticks,
@@ -718,12 +819,37 @@ def spec_config(eng_mod, spec: bool, capture_logits: bool = True):
         spec_draft_layers=SPEC_DEPTH if spec else 0)
 
 
+def reset_counts(counters: dict) -> None:
+    """Every launch count, and every count by body, to 0."""
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_by_path"):
+            fn.launches_by_path = dict.fromkeys(fn.launches_by_path, 0)
+
+
+def path_counts(counters: dict) -> dict:
+    """{kernel: {body: launches}} for the kernels with more than one body."""
+    return {name: dict(fn.launches_by_path) for name, fn in counters.items()
+            if hasattr(fn, "launches_by_path")}
+
+
+def check_mma(counters: dict, n: dict, what: str) -> dict:
+    """On a bf16 main path every launch of flash and of the grouped matmul
+    must have taken the tensor-core body; returns the counts by body."""
+    paths = path_counts(counters)
+    for name, by in paths.items():
+        check(by["mma"] == n[name] and sum(by.values()) == n[name],
+              f"{what}: {name} launches by body {by} of {n[name]}; every "
+              f"bf16 call must take the mma body")
+    return paths
+
+
 def run_counted(torch, counters: dict, serve_fn):
     """Call ``serve_fn`` with every launch count set to 0 just before and
     read just after; returns (its result, wall seconds, {kernel:
-    launches})."""
-    for fn in counters.values():
-        fn.launches = 0
+    launches}). The counts by body stay on the wrappers for
+    ``path_counts``."""
+    reset_counts(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = serve_fn()
@@ -969,6 +1095,7 @@ def moe_phase(torch, configs, eng_mod, traces, model_lib, api, moe_mod,
                     "paged_attention": cfg.num_layers * stats["decode_ticks"],
                     "flash_attention": cfg.num_layers * stats["prefills"],
                     "paged_attention_verify": 0}
+            paths = check_mma(counters, n, f"moe {backend}")
         else:
             want = {name: 0 for name in counters}
         check(n == want, f"moe {backend} launches {n} != {want}")
@@ -1003,7 +1130,7 @@ def moe_phase(torch, configs, eng_mod, traces, model_lib, api, moe_mod,
           f"moe bf16 kernel run is farther from fp32 arithmetic than the "
           f"torch run: {ratio}")
     report = {"kernel": {**run_summary(stats, wall), "prefills":
-                         stats["prefills"], "launches": n,
+                         stats["prefills"], "launches": n, "paths": paths,
                          "peak_mem_gb": peak, "routing": routing},
               "torch": {**run_summary(runs["torch"][1], runs["torch"][2]),
                         "peak_mem_gb": runs["torch"][4]},
@@ -1037,6 +1164,7 @@ def moe_phase(torch, configs, eng_mod, traces, model_lib, api, moe_mod,
                              device="cuda", router_bias=bias)
         st, w, cnt = run_counted(torch, counters,
                                  lambda: eng.run(reqs, max_ticks=500))
+        check_mma(counters, cnt, f"moe spec={spec}")
         check(st["completed"] == len(reqs), f"moe spec={spec}: {st}")
         check_budgets(eng, f"moe spec={spec}")
         spec_runs[spec] = (eng, st, w, cnt)
@@ -1339,8 +1467,10 @@ def main() -> int:
     from repro_torch.core import router
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+    from repro_torch.kernels.flash_attention import kernel_path as flash_path
     from repro_torch.kernels.grid_step import grid_step
     from repro_torch.kernels.moe_gmm import gmm_ref, moe_gmm
+    from repro_torch.kernels.moe_gmm import kernel_path as gmm_path
     from repro_torch.kernels.paged_attention import (
         paged_attention, paged_attention_ref, paged_attention_verify,
         paged_attention_verify_ref)
@@ -1376,8 +1506,9 @@ def main() -> int:
     paged_cases = check_paged(torch, gen, paged_attention, paged_attention_ref)
     verify_cases = check_verify(torch, gen, paged_attention_verify,
                                 paged_attention_verify_ref, paged_attention)
-    flash_cases = check_flash(torch, gen, flash_attention, attention_ref)
-    gmm_cases = check_gmm(torch, gen, moe_gmm, gmm_ref)
+    flash_cases = check_flash(torch, gen, flash_attention, attention_ref,
+                              flash_path)
+    gmm_cases = check_gmm(torch, gen, moe_gmm, gmm_ref, gmm_path)
     print("kernel checks: " + json.dumps({"paged": paged_cases,
                                           "verify": verify_cases,
                                           "flash": flash_cases,
@@ -1396,7 +1527,8 @@ def main() -> int:
         {"paged_attention": paged_t["shape"],
          "paged_attention_verify": {**verify_t["shape"],
                                     "library": verify_t["library_note"]},
-         "flash_attention": flash_t["shape"], "moe_gmm": gmm_t["shape"]}))
+         "flash_attention": [flash_t["shape"], flash_t["s383"]["shape"]],
+         "moe_gmm": [gmm_t["shape"], gmm_t["prefill"]["shape"]]}))
 
     # -- phase 3: the engine on smollm-360m -----------------------------------
     params = model_lib.init_params(
@@ -1405,10 +1537,12 @@ def main() -> int:
     print(f"smollm-360m: {model_lib.param_count(params) / 1e6:.1f}M params, "
           f"{cfg.num_layers} layers, dtype {cfg.dtype}")
     trace = make_trace(traces, cfg, args.seed)
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     eng, stats, wall = serve(torch, eng_mod, params, cfg, trace, "kernel")
     paged_n, flash_n = paged_attention.launches, flash_attention.launches
+    flash_paths = check_mma({"flash_attention": flash_attention},
+                            {"flash_attention": flash_n}, "engine")[
+                                "flash_attention"]
     check(paged_attention_verify.launches == 0,
           "the plain engine launched the verify kernel")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1436,7 +1570,8 @@ def main() -> int:
         "peak_mem_gb": peak_gb, "p50_latency_ticks": stats["p50_latency"],
         "p99_latency_ticks": stats["p99_latency"],
         "goodput": stats["goodput"], "paged_launches": paged_n,
-        "flash_launches": flash_n, "capture_logits": True}))
+        "flash_launches": flash_n, "flash_paths": flash_paths,
+        "capture_logits": True}))
     ref_trace = make_trace(traces, cfg, args.seed)
     eng_ref, stats_ref, wall_ref = serve(torch, eng_mod, params, cfg,
                                          ref_trace, "torch")
@@ -1534,15 +1669,22 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
-         "launches": flash_n, **{k: flash_t[k] for k in (
+         "launches": flash_n, "paths": flash_paths, **{k: flash_t[k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}},
+             "library_ms", "device_ms", "library_device_ms")},
+         "s383": {k: flash_t["s383"][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "device_ms", "library_device_ms")}},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
          "replaces": "src/repro/kernels/moe_gmm/kernel.py:45",
-         "launches": gmm_n, **{k: gmm_t[k] for k in (
+         "launches": gmm_n, "paths": moe_rep["kernel"]["paths"]["moe_gmm"],
+         **{k: gmm_t[k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}},
+             "library_ms", "device_ms", "library_device_ms")},
+         "prefill": {k: gmm_t["prefill"][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "device_ms", "library_device_ms")}},
         {"name": "grid_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/grid_step.cu",
          "replaces": "src/repro/kernels/grid_step/kernel.py:59", **grid_k},

@@ -28,14 +28,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)   # an int the entry point writes back
 # C signatures of the entry points in csrc/ (pointers and the stream as void*)
 SIGNATURES = {
     "repro_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _P],
     "repro_paged_attention_verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _I, _I, _I, _P],
-    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "repro_moe_gmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                              _IP],
+    "repro_moe_gmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _IP],
     "repro_grid_step": [_P, _P, _P, _I, _I, _P],
 }
 

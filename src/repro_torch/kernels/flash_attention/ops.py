@@ -6,9 +6,12 @@ The wrapper checks device, shape, dtype and contiguity against the kernel's
 contract for every call; then on CPU tensors it runs the plain version
 (``ref.py``) and on CUDA tensors it launches the kernel on the current stream
 or raises — there is no fallback. ``flash_attention.launches`` counts kernel
-launches.
+launches, and ``flash_attention.launches_by_path`` counts them by the body
+the kernel library reports it took (``kernel_path``).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -17,6 +20,16 @@ from .ref import attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+# the bodies of csrc/flash_attention.cu, by the code its entry point reports
+PATHS = ("cuda_core", "mma")
+
+
+def kernel_path(dtype: torch.dtype, aligned: bool = True) -> str:
+    """The body a CUDA call with inputs of ``dtype`` takes: ``"mma"`` (bf16
+    on the tensor cores) or ``"cuda_core"`` (fp32, and bf16 whose pointers
+    are not 16-byte aligned, which cp.async needs). Any head dim of
+    ``HEAD_DIMS``; the C entry point makes the same choice."""
+    return "mma" if dtype == torch.bfloat16 and aligned else "cuda_core"
 
 
 def flash_attention(q, k, v, causal: bool = True):
@@ -43,14 +56,17 @@ def flash_attention(q, k, v, causal: bool = True):
         return attention_ref(q, k, v, causal=causal)
     out = torch.empty_like(q)
     lib = _build.library()
+    path = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hk,
-            s, d, int(causal), DTYPES[q.dtype], stream)
+            s, d, int(causal), DTYPES[q.dtype], stream, ctypes.byref(path))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.launches_by_path[PATHS[path.value]] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_path = dict.fromkeys(PATHS, 0)

@@ -6,10 +6,13 @@ The wrapper checks device, shape, dtype and contiguity against the kernel's
 contract for every call; then on CPU tensors it runs the plain version
 (``ref.py``) and on CUDA tensors it launches the kernel on the current stream
 or raises — there is no fallback. ``moe_gmm.launches`` counts kernel
-launches. ``group_sizes`` stays on the device: the kernel reads it itself,
-so a call costs no host sync.
+launches, and ``moe_gmm.launches_by_path`` counts them by the body the
+kernel library reports it took (``kernel_path``). ``group_sizes`` stays on
+the device: the kernel reads it itself, so a call costs no host sync.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -17,6 +20,19 @@ from .. import _build
 from .ref import gmm_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the bodies of csrc/moe_gmm.cu, by the code its entry point reports
+PATHS = ("cuda_core", "mma")
+
+
+def kernel_path(dtype: torch.dtype, d: int, f: int,
+                aligned: bool = True) -> str:
+    """The body a CUDA call with x (E, C, d), w (E, d, f) of ``dtype``
+    takes: ``"mma"`` (bf16 on the tensor cores; its 16-byte copies need d
+    and f to be multiples of 8 and aligned pointers) or ``"cuda_core"``
+    (fp32 and every other shape). The C entry point makes the same
+    choice."""
+    return ("mma" if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
+            and aligned else "cuda_core")
 
 
 def moe_gmm(x, w, group_sizes):
@@ -51,14 +67,18 @@ def moe_gmm(x, w, group_sizes):
     if out.numel() == 0:
         return out
     lib = _build.library()
+    path = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_moe_gmm(x.data_ptr(), w.data_ptr(),
                                 group_sizes.data_ptr(), out.data_ptr(), e, c,
-                                d, f, DTYPES[x.dtype], stream)
+                                d, f, DTYPES[x.dtype], stream,
+                                ctypes.byref(path))
     _build.check(err, "moe_gmm")
     moe_gmm.launches += 1
+    moe_gmm.launches_by_path[PATHS[path.value]] += 1
     return out
 
 
 moe_gmm.launches = 0
+moe_gmm.launches_by_path = dict.fromkeys(PATHS, 0)

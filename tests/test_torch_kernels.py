@@ -31,6 +31,8 @@ from repro.kernels.paged_attention import \
 from repro.kernels.paged_attention import \
     paged_attention_verify_ref as jax_verify_ref
 from repro_torch.core.vlsi import extractor, layout
+from repro_torch.kernels import flash_attention as flash_pkg
+from repro_torch.kernels import moe_gmm as gmm_pkg
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.grid_step import grid_step, grid_step_ref
 from repro_torch.kernels.moe_gmm import gmm_ref, moe_gmm
@@ -294,6 +296,52 @@ class TestWrappers:
         f0 = flash_attention.launches
         assert torch.equal(flash_attention(x, y, y), attention_ref(x, y, y))
         assert flash_attention.launches == f0
+
+    @pytest.mark.parametrize("dtype,aligned,want", [
+        (torch.bfloat16, True, "mma"), (torch.bfloat16, False, "cuda_core"),
+        (torch.float32, True, "cuda_core"),
+        (torch.float32, False, "cuda_core")])
+    def test_flash_path_is_a_function_of_dtype(self, dtype, aligned, want):
+        assert flash_pkg.kernel_path(dtype, aligned) == want
+        assert want in flash_pkg.ops.PATHS
+
+    @pytest.mark.parametrize("dtype,d,f,aligned,want", [
+        (torch.bfloat16, 1536, 512, True, "mma"),      # decode gate / up
+        (torch.bfloat16, 512, 1536, True, "mma"),      # decode down
+        (torch.bfloat16, 96, 80, True, "mma"),
+        (torch.bfloat16, 45, 23, True, "cuda_core"),   # 16-byte rows fail
+        (torch.bfloat16, 96, 20, True, "cuda_core"),
+        (torch.bfloat16, 36, 80, True, "cuda_core"),
+        (torch.bfloat16, 1536, 512, False, "cuda_core"),
+        (torch.float32, 1536, 512, True, "cuda_core")])
+    def test_gmm_path_is_a_function_of_dtype_and_shape(self, dtype, d, f,
+                                                       aligned, want):
+        assert gmm_pkg.kernel_path(dtype, d, f, aligned) == want
+        assert want in gmm_pkg.ops.PATHS
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_cpu_path_runs_plain_and_counts_no_body(self, dtype):
+        """On CPU tensors both wrappers return their plain version's result
+        and count neither a launch nor a launch by body, whatever the
+        dtype."""
+        rng = np.random.default_rng(3)
+        q = torch.as_tensor(rng.standard_normal((1, 6, 65, 16)),
+                            dtype=torch.float32).to(dtype)
+        kv = torch.as_tensor(rng.standard_normal((1, 2, 65, 16)),
+                             dtype=torch.float32).to(dtype)
+        f0, fp0 = flash_attention.launches, dict(
+            flash_attention.launches_by_path)
+        assert torch.equal(flash_attention(q, kv, kv),
+                           attention_ref(q, kv, kv))
+        assert flash_attention.launches == f0
+        assert flash_attention.launches_by_path == fp0
+        x, w, sizes = (torch.as_tensor(a) for a in
+                       gmm_fixture(3, 3, 20, 16, 8, masked=False))
+        x, w = x.to(dtype), w.to(dtype)
+        g0, gp0 = moe_gmm.launches, dict(moe_gmm.launches_by_path)
+        assert torch.equal(moe_gmm(x, w, sizes), gmm_ref(x, w, sizes))
+        assert moe_gmm.launches == g0
+        assert moe_gmm.launches_by_path == gp0
 
     def test_paged_rejects_what_the_kernel_cannot_take(self):
         q, kp, vp, table, lengths = _t(*paged_fixture(0, 2, 4, 2, 32, 8, 3))
