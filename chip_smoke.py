@@ -20,29 +20,35 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    252, 1536, 512) and at (3, 37, 96, 80), with seeded group sizes that
    include 0 and C, and live values, then NaN, in the rows past each group.
    Tolerances: 1e-5 (paged, verify) / 5e-5 (flash) in fp32, 5e-2 in bf16,
-   and for flash also the worst row's ||out - ref|| / ||ref|| (1e-4 fp32,
-   2e-2 bf16: a KV tile lost on late rows fails it); grouped matmul allclose 2e-4 fp32 / 2e-1 bf16 with its dead rows exactly
-   0.0. Flash and the grouped matmul have two bodies each (bf16 on the
-   tensor cores, "mma"; fp32 on CUDA cores); every check must count its
-   launch under the body ``kernel_path`` names. Then each kernel, its plain
+   and for paged decode, verify and flash also the worst row's ||out - ref||
+   / ||ref|| (1e-4 fp32, 2e-2 bf16: a split or KV tile lost or mis-weighted
+   on late rows fails it); grouped matmul allclose 2e-4 fp32 / 2e-1 bf16
+   with its dead rows exactly 0.0. Every kernel but the grid step has two
+   bodies (the tensor cores, "mma"; CUDA cores, "cuda_core"), picked from
+   dtype, shapes and alignment: bf16 calls take "mma" (the grouped matmul
+   only where D and F are multiples of 8, all only with 16-byte-aligned
+   pointers), fp32 calls "cuda_core"; every check must count its launch
+   under the body ``kernel_path`` names. Then each kernel, its plain
    version and a library call (SDPA for flash, ``torch.bmm`` for the
    grouped matmul) are timed with CUDA events at main-path shapes, beside
-   the bound from the bytes and flops those shapes need (verify: B=8, Sq=5
-   at the spec trace's positions; flash at S = 1000 and 383; the grouped
-   matmul at the decode tick's gate / up shape with one tick's group sizes
-   and at a 1000-token prefill's (C = 252); no single PyTorch call gathers
-   pages, so paged decode and verify have no library time). Flash and the
-   grouped matmul, whose calls at these shapes take about as long on the
-   host as on the device, also report ``device_ms`` (``torch.profiler``'s
-   device time a call) for the kernel and the library call.
+   the bound from the bytes and flops those shapes need (decode: B=8 at lengths 102-1100; verify: B=8, Sq=5 at the spec
+   trace's positions; flash at S = 1000 and 383; the grouped matmul at the
+   decode tick's gate / up shape with one tick's group sizes and at a
+   1000-token prefill's (C = 252)). No single PyTorch call gathers pages,
+   so paged decode and verify have no library time; beside them SDPA over
+   the same live K / V already gathered into a padded contiguous layout
+   (gather not timed) is printed, labelled as not the same function. Every
+   kernel but the grid step, whose calls at these shapes take about as long
+   on the host as on the device, also reports ``device_ms``
+   (``torch.profiler``'s device time a call).
 3. Engine: smollm-360m at its full published config (32 layers, d_model
    960, 15/5 heads, head_dim 64, d_ff 2560, vocab 49,152, bf16; random
    weights from ``--seed``) serves 16 requests of ``synthetic_trace``
    (prompts 100 / 383, heavy prompt 1000, 32 / 128 new tokens, two seeded
    lanes at temperature 0.8) through ``Engine.run`` with one-shot prefill.
    Every request must finish with its full token budget, the paged kernel
-   must have launched 32 x decode ticks and flash 32 x prefills, every one
-   of them on the tensor-core body. The same
+   must have launched 32 x decode ticks and flash 32 x prefills, each call
+   on the body its ``kernel_path`` predicts (the tensor cores). The same
    trace is served again on the torch attention backend: per request the
    logits must agree within rtol = atol = 5e-2 (the allclose form of
    tests/test_kernels.py) up to the first token where the two runs differ,
@@ -61,9 +67,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    spec_draft_layers=8`` and once without, both on the kernel backend.
    Every request must finish with its budget, spec ticks must run, the
    verify kernel must have launched 32 x spec ticks and the decode kernel
-   32 x plain ticks + 8 x 4 x spec ticks, and the two runs' streams must
-   agree by the rule of phase 3 (bf16 rtol = atol = 1e-1; a divergence only
-   where the non-spec run's top-2 margin is below that tolerance).
+   32 x plain ticks + 8 x 4 x spec ticks, each on its predicted body (the
+   tensor cores), and the two runs' streams must agree by the rule of
+   phase 3 (bf16 rtol = atol = 1e-1; a divergence only where the non-spec
+   run's top-2 margin is below that tolerance).
 5. Slot groups: at full width, two parents on one 200-token prompt — one
    ``n=2``, one ``best_of=3``, temperature 0.8, seeded — with chunked prefill
    and prefix sharing. Each parent must assemble with its lanes in the
@@ -79,9 +86,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    0.8) on 8 slots with one-shot prefill, on the kernel and the torch
    backends. Every request must finish with its budget; the grouped matmul
    must have launched exactly 3 x 32 x (decode ticks + prefills), paged
-   decode 32 x decode ticks and flash 32 x prefills, the grouped matmul and
-   flash (here and in the spec run below) every time on the tensor-core
-   body. The same trace on the
+   decode 32 x decode ticks and flash 32 x prefills, each kernel (here and
+   in the spec run below) every time on the body its ``kernel_path``
+   predicts. The same trace on the
    same weights in fp32 must agree between the two backends by the rule of
    phase 3 at 1e-3; in bf16 (where routing flips at near-tied experts move
    the logits of any two roundings beyond the 1e-1 rule, see
@@ -146,6 +153,11 @@ TOL = {"paged": {"float32": 1e-5, "bfloat16": 5e-2},
 # are ~1/sqrt(S) ~ 0.03, below the absolute bf16 limit, while one 64-row KV
 # tile dropped from such a row moves this ratio by ~8/sqrt(S) ~ 0.25.
 FLASH_ROW_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# Paged decode and verify beside TOL["paged"], the same ratio and limits: a
+# late row over ~1,000 positions has values ~0.03, below the absolute bf16
+# limit, while one split dropped or weighted 1.1x in the merge moves it by
+# far more than 2e-2.
+PAGED_ROW_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # (rtol, atol) on logits. bf16 at full depth: the torch backend rounds the
 # scores and the probabilities to bf16 before their products (the JAX
 # package's _sdpa), the kernels keep both in fp32 (as the TPU kernels do);
@@ -221,6 +233,13 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+def row_rel_err(out, ref) -> float:
+    """The worst row of ``||out - ref|| / ||ref||`` over the last dim."""
+    o, r = out.float(), ref.float()
+    return ((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)
+            ).max().item()
+
+
 def paged_inputs(torch, gen, b, h, hk, d, page, maxp, dtype, lengths=None):
     dev = "cuda"
     num_pages = b * maxp + 1
@@ -242,7 +261,11 @@ def paged_inputs(torch, gen, b, h, hk, d, page, maxp, dtype, lengths=None):
     return q, kp, vp, table.to(dev), lengths
 
 
-def check_paged(torch, gen, paged_attention, paged_attention_ref) -> list:
+def check_paged(torch, gen, paged_attention, paged_attention_ref,
+                kernel_path) -> list:
+    """smollm's width, MHA and MQA in fp32 and bf16 at ragged lengths:
+    within TOL["paged"] and PAGED_ROW_TOL, each launch counted under the body
+    ``kernel_path`` names, and the +-1e4 null page never read."""
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for (b, h, hk, d, page, maxp) in [(8, 15, 5, 64, 16, 96),   # smollm
@@ -250,19 +273,28 @@ def check_paged(torch, gen, paged_attention, paged_attention_ref) -> list:
                                           (2, 8, 1, 128, 16, 3)]:   # MQA
             q, kp, vp, table, lengths = paged_inputs(
                 torch, gen, b, h, hk, d, page, maxp, dtype)
+            name = str(dtype).split(".")[-1]
+            path = kernel_path(dtype)
+            p0 = paged_attention.launches_by_path[path]
             out = paged_attention(q, kp, vp, table, lengths)
             torch.cuda.synchronize()
+            check(paged_attention.launches_by_path[path] == p0 + 1,
+                  f"paged {name} {(b, h, hk, d, page)} did not take the "
+                  f"{path} body")
             ref = paged_attention_ref(q, kp, vp, table, lengths)
             err = (out.float() - ref.float()).abs().max().item()
-            name = str(dtype).split(".")[-1]
+            rel = row_rel_err(out, ref)
             check(err <= TOL["paged"][name],
                   f"paged {name} {(b, h, hk, d, page)} err {err}")
+            check(rel <= PAGED_ROW_TOL[name],
+                  f"paged {name} {(b, h, hk, d, page)} row error {rel}")
             kp[0], vp[0] = 0.0, 0.0                   # clean null page
             clean = paged_attention(q, kp, vp, table, lengths)
             check(torch.equal(clean, out),
                   f"paged {name}: null-page contents leaked into the output")
             cases.append({"shape": [b, h, hk, d, page, maxp], "dtype": name,
-                          "max_abs_err": err})
+                          "path": path, "max_abs_err": err,
+                          "row_rel_err": rel})
     return cases
 
 
@@ -292,7 +324,12 @@ def verify_inputs(torch, gen, b, sq, h, hk, d, page, maxp, dtype, pos=None):
     return q, kp, vp, table.to(dev), pos.to(dev)
 
 
-def check_verify(torch, gen, verify, verify_ref, paged_attention) -> list:
+def check_verify(torch, gen, verify, verify_ref, paged_attention,
+                 kernel_path) -> list:
+    """smollm's width, MHA and MQA for Sq in {1, 2, 5, 7} in fp32 and bf16:
+    within TOL["paged"] and PAGED_ROW_TOL, each launch counted under the body
+    ``kernel_path`` names, the null page never read, and at
+    Sq = 1 bitwise the decode kernel at lengths = pos + 1."""
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -302,12 +339,21 @@ def check_verify(torch, gen, verify, verify_ref, paged_attention) -> list:
             for sq in (1, 2, 5, 7):
                 q, kp, vp, table, pos = verify_inputs(
                     torch, gen, b, sq, h, hk, d, page, maxp, dtype)
+                path = kernel_path(dtype)
+                p0 = verify.launches_by_path[path]
                 out = verify(q, kp, vp, table, pos)
                 torch.cuda.synchronize()
+                check(verify.launches_by_path[path] == p0 + 1,
+                      f"verify {name} {(b, sq, h, hk, d, page)} did not "
+                      f"take the {path} body")
                 ref = verify_ref(q, kp, vp, table, pos)
                 err = (out.float() - ref.float()).abs().max().item()
+                rel = row_rel_err(out, ref)
                 check(err <= TOL["paged"][name],
                       f"verify {name} {(b, sq, h, hk, d, page)} err {err}")
+                check(rel <= PAGED_ROW_TOL[name],
+                      f"verify {name} {(b, sq, h, hk, d, page)} row error "
+                      f"{rel}")
                 if sq == 1:
                     dec = paged_attention(q[:, 0].contiguous(), kp, vp,
                                           table, pos + 1)
@@ -317,7 +363,8 @@ def check_verify(torch, gen, verify, verify_ref, paged_attention) -> list:
                 check(torch.equal(verify(q, kp, vp, table, pos), out),
                       f"verify {name}: null-page contents leaked")
                 cases.append({"shape": [b, sq, h, hk, d, page, maxp],
-                              "dtype": name, "max_abs_err": err})
+                              "dtype": name, "path": path,
+                              "max_abs_err": err, "row_rel_err": rel})
     return cases
 
 
@@ -326,13 +373,6 @@ def check_verify(torch, gen, verify, verify_ref, paged_attention) -> list:
 FLASH_CASES = ([(1, 15, 5, 64, s) for s in (1, 17, 64, 65, 128, 383, 1000)]
                + [(2, 15, 5, d, s) for d in (16, 32, 128)
                   for s in (64, 65, 383)])
-
-
-def row_rel_err(out, ref) -> float:
-    """The worst row of ``||out - ref|| / ||ref||`` over the last dim."""
-    o, r = out.float(), ref.float()
-    return ((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)
-            ).max().item()
 
 
 def check_flash(torch, gen, flash_attention, attention_ref,
@@ -369,6 +409,36 @@ def check_flash(torch, gen, flash_attention, attention_ref,
     return cases
 
 
+def dense_sdpa(torch, q, k_pages, v_pages, table, bound) -> dict:
+    """SDPA over the live K / V of each lane, gathered beforehand (not
+    timed) into a padded contiguous (B, H, L, D) layout with K / V expanded
+    to the q heads, L the longest lane's live positions; ``bound`` (B, Sq)
+    the last position each query row attends. Not the same function as a
+    paged kernel (no page gather, padded positions read): a yardstick only.
+    q: (B, Sq, H, D)."""
+    import torch.nn.functional as F
+    b, sq, h, d = q.shape
+    hk = k_pages.shape[2]
+    length = int(bound.max().item()) + 1
+    idx = table.long()
+
+    def dense(pages):
+        x = pages[idx].reshape(b, -1, hk, d)[:, :length]
+        return x.transpose(1, 2).repeat_interleave(h // hk, dim=1).contiguous()
+
+    k, v = dense(k_pages), dense(v_pages)
+    qq = q.transpose(1, 2).contiguous()
+    mask = (torch.arange(length, device=q.device)[None, None, :]
+            <= bound[:, :, None])[:, None]
+
+    def fn():
+        return F.scaled_dot_product_attention(qq, k, v, attn_mask=mask)
+
+    return {"ms": cuda_ms(torch, fn), "device_ms": device_ms(torch, fn),
+            "padded_positions": length,
+            "note": "not the same function: no page gather, padded K/V"}
+
+
 def time_paged(torch, gen, paged_attention, paged_attention_ref) -> dict:
     """Main-path decode shape: 8 slots at smollm width over a 1536-token
     block table, lengths typical of the trace's in-flight mix. Eight pool
@@ -386,8 +456,10 @@ def time_paged(torch, gen, paged_attention, paged_attention_ref) -> dict:
         paged_attention(q, k_, v_, table, lens)
 
     ms = cuda_ms(torch, kern)
+    dev_ms = device_ms(torch, kern)
     plain_ms = cuda_ms(torch, lambda: paged_attention_ref(q, kp, vp, table,
                                                           lens), iters=20)
+    dense = dense_sdpa(torch, q[:, None], kp, vp, table, (lens - 1)[:, None])
     out = paged_attention(q, kp, vp, table, lens)
     err = (out.float() - paged_attention_ref(q, kp, vp, table, lens).float()
            ).abs().max().item()
@@ -397,10 +469,17 @@ def time_paged(torch, gen, paged_attention, paged_attention_ref) -> dict:
               + table.numel() * 4 + b * 4)
     flops = 4 * live * h * d
     bound_ms, by = bound(nbytes, flops, "bfloat16")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": None, "dense_sdpa": dense, "bound_ms": bound_ms,
+            "bound_by": by, "max_abs_err": err,
             "shape": {"B": b, "H": h, "Hkv": hk, "D": d, "page": page,
                       "maxp": maxp, "lengths": lengths, "dtype": "bfloat16"}}
+
+
+def verify_positions(traces, cfg, seed: int) -> list:
+    """Verify timing positions: the spec trace's first 8 requests, 16
+    tokens into their decode."""
+    return [len(r.tokens) + 16 for r in spec_trace(traces, cfg, seed)[:8]]
 
 
 def time_verify(torch, gen, verify, verify_ref, positions: list) -> dict:
@@ -418,8 +497,12 @@ def time_verify(torch, gen, verify, verify_ref, positions: list) -> dict:
         verify(q, k_, v_, table, pos)
 
     ms = cuda_ms(torch, kern)
+    dev_ms = device_ms(torch, kern)
     plain_ms = cuda_ms(torch, lambda: verify_ref(q, kp, vp, table, pos),
                        iters=20)
+    rows = pos.long()[:, None] + torch.arange(sq, device=pos.device)
+    dense = dense_sdpa(torch, q, kp, vp, table,
+                       rows.clamp(max=maxp * page - 1))
     err = (verify(q, kp, vp, table, pos).float()
            - verify_ref(q, kp, vp, table, pos).float()).abs().max().item()
     es = 2
@@ -431,9 +514,11 @@ def time_verify(torch, gen, verify, verify_ref, positions: list) -> dict:
               + table.numel() * 4 + b * 4)
     flops = 4 * attended * h * d
     bound_ms, by = bound(nbytes, flops, "bfloat16")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": None,
             "library_note": "no single PyTorch call gathers pages",
-            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
+            "dense_sdpa": dense, "bound_ms": bound_ms, "bound_by": by,
+            "max_abs_err": err,
             "shape": {"B": b, "Sq": sq, "H": h, "Hkv": hk, "D": d,
                       "page": page, "maxp": maxp, "pos": positions,
                       "dtype": "bfloat16"}}
@@ -658,9 +743,9 @@ def profile_decode(torch, eng_mod, params, cfg, reqs, ecfg,
             if ev.device_type != DeviceType.CPU and ev.self_device_time_total]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    # paged_decode / paged_verify: the split launches and their merges
     ours = {name: sum(r[0] for r in rows if name in r[2]) / ticks
-            for name in ("paged_decode_kernel", "paged_verify_kernel",
-                         "moe_gmm")}
+            for name in ("paged_decode", "paged_verify", "moe_gmm")}
     return {"ticks": ticks, "spec_ticks": eng.spec_ticks,
             "wall_ms_per_tick": wall_ms / ticks,
             "device_ms_per_tick": busy / ticks,
@@ -833,14 +918,27 @@ def path_counts(counters: dict) -> dict:
             if hasattr(fn, "launches_by_path")}
 
 
-def check_mma(counters: dict, n: dict, what: str) -> dict:
-    """On a bf16 main path every launch of flash and of the grouped matmul
-    must have taken the tensor-core body; returns the counts by body."""
+def main_bodies(torch, kernel_paths: dict, cfg) -> dict:
+    """The body every bf16 call of each kernel takes on ``cfg``'s main
+    paths, as the wrappers' ``kernel_path`` predict it: paged decode and
+    verify, flash, and the grouped matmul at the expert widths."""
+    bf = torch.bfloat16
+    return {"paged_attention": kernel_paths["paged"](bf),
+            "paged_attention_verify": kernel_paths["paged"](bf),
+            "flash_attention": kernel_paths["flash"](bf),
+            "moe_gmm": kernel_paths["gmm"](bf, cfg.d_model, cfg.d_ff)}
+
+
+def check_bodies(counters: dict, n: dict, what: str, bodies: dict) -> dict:
+    """On a bf16 main path every launch of each kernel with more than one
+    body must have taken the body in ``bodies`` (``main_bodies``); returns
+    the counts by body."""
     paths = path_counts(counters)
     for name, by in paths.items():
-        check(by["mma"] == n[name] and sum(by.values()) == n[name],
+        want = bodies[name]
+        check(by[want] == n[name] and sum(by.values()) == n[name],
               f"{what}: {name} launches by body {by} of {n[name]}; every "
-              f"bf16 call must take the mma body")
+              f"bf16 call must take the {want} body")
     return paths
 
 
@@ -885,8 +983,10 @@ def check_budgets(eng, what: str) -> None:
 
 
 def spec_phase(torch, eng_mod, traces, model_lib, api, params, cfg,
-               seed: int, counters: dict) -> tuple[dict, int]:
+               seed: int, counters: dict,
+               kernel_paths: dict) -> tuple[dict, int]:
     """Phase 4; returns (report, verify launches on the spec run)."""
+    bodies = main_bodies(torch, kernel_paths, cfg)
     runs = {}
     for spec in (True, False):
         trace = spec_trace(traces, cfg, seed)
@@ -898,8 +998,9 @@ def spec_phase(torch, eng_mod, traces, model_lib, api, params, cfg,
               and not stats["rejected"] and not stats["corrupted"],
               f"spec={spec}: not every request completed: {stats}")
         check_budgets(eng, f"spec={spec}")
-        runs[spec] = (eng, stats, wall, n)
-    eng, stats, wall, n = runs[True]
+        paths = check_bodies(counters, n, f"spec={spec}", bodies)
+        runs[spec] = (eng, stats, wall, n, paths)
+    eng, stats, wall, n, paths = runs[True]
     check(stats["spec_ticks"] > 0, "the spec run ran no spec tick")
     check(n["paged_attention_verify"] == cfg.num_layers * stats["spec_ticks"],
           f"verify launches {n['paged_attention_verify']} != "
@@ -917,9 +1018,10 @@ def spec_phase(torch, eng_mod, traces, model_lib, api, params, cfg,
                       plain[0].completed, *BF16_TOL)
     check(not agree["violations"], f"spec and non-spec streams disagree: "
           f"{agree['first_violations']}")
-    report = {"spec": {**run_summary(stats, wall), "launches": n},
+    report = {"spec": {**run_summary(stats, wall), "launches": n,
+                       "paths": paths},
               "non_spec": {**run_summary(plain[1], plain[2]),
-                           "launches": plain[3]},
+                           "launches": plain[3], "paths": plain[4]},
               "agreement": {**agree, "rtol": BF16_TOL[0],
                             "atol": BF16_TOL[1]},
               "k": SPEC_K, "draft_layers": SPEC_DEPTH}
@@ -927,7 +1029,7 @@ def spec_phase(torch, eng_mod, traces, model_lib, api, params, cfg,
 
 
 def group_phase(torch, eng_mod, groups, model_lib, api, params, cfg,
-                seed: int, counters: dict) -> dict:
+                seed: int, counters: dict, kernel_paths: dict) -> dict:
     """Phase 5: an n=2 and a best_of=3 parent on one prompt."""
     rng = np.random.default_rng(seed + 5)
     prompt = rng.integers(0, cfg.vocab_size, size=200).astype(np.int32)
@@ -953,6 +1055,7 @@ def group_phase(torch, eng_mod, groups, model_lib, api, params, cfg,
     check(stats["shared_pages_adopted"] > 0, "no shared prompt page adopted")
     check(n["paged_attention"] == cfg.num_layers * stats["decode_ticks"] > 0,
           f"group run decode launches {n}")
+    check_bodies(counters, n, "groups", main_bodies(torch, kernel_paths, cfg))
     members = {r.rid: r for r in eng.completed if r.group >= 0}
     for parent in parents():
         done = finals.get(parent.rid)
@@ -1063,13 +1166,15 @@ class MoEStatsRecorder:
 
 
 def moe_phase(torch, configs, eng_mod, traces, model_lib, api, moe_mod,
-              router, spec_mod, seed: int, counters: dict) -> tuple:
+              router, spec_mod, seed: int, counters: dict,
+              kernel_paths: dict) -> tuple:
     """Phase 6 and the MoE spec run. Returns (report, moe_gmm launches on
     the kernel-backend serving run)."""
     cfg = configs.get_config(MOE_ARCH)
     params = model_lib.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
     bias = torch.zeros((cfg.num_layers, cfg.num_experts), device="cuda")
+    bodies = main_bodies(torch, kernel_paths, cfg)
     nparams = model_lib.param_count(params)
     print(f"{MOE_ARCH}: {nparams / 1e9:.3f}B params "
           f"({model_lib.active_param_count(params, cfg) / 1e9:.3f}B active), "
@@ -1095,7 +1200,7 @@ def moe_phase(torch, configs, eng_mod, traces, model_lib, api, moe_mod,
                     "paged_attention": cfg.num_layers * stats["decode_ticks"],
                     "flash_attention": cfg.num_layers * stats["prefills"],
                     "paged_attention_verify": 0}
-            paths = check_mma(counters, n, f"moe {backend}")
+            paths = check_bodies(counters, n, f"moe {backend}", bodies)
         else:
             want = {name: 0 for name in counters}
         check(n == want, f"moe {backend} launches {n} != {want}")
@@ -1164,7 +1269,7 @@ def moe_phase(torch, configs, eng_mod, traces, model_lib, api, moe_mod,
                              device="cuda", router_bias=bias)
         st, w, cnt = run_counted(torch, counters,
                                  lambda: eng.run(reqs, max_ticks=500))
-        check_mma(counters, cnt, f"moe spec={spec}")
+        check_bodies(counters, cnt, f"moe spec={spec}", bodies)
         check(st["completed"] == len(reqs), f"moe spec={spec}: {st}")
         check_budgets(eng, f"moe spec={spec}")
         spec_runs[spec] = (eng, st, w, cnt)
@@ -1474,6 +1579,7 @@ def main() -> int:
     from repro_torch.kernels.paged_attention import (
         paged_attention, paged_attention_ref, paged_attention_verify,
         paged_attention_verify_ref)
+    from repro_torch.kernels.paged_attention import kernel_path as paged_path
     from repro_torch.models import model as model_lib
     from repro_torch.models import moe as moe_mod
     from repro_torch.serve import api, groups, traces
@@ -1482,6 +1588,8 @@ def main() -> int:
     counters = {"paged_attention": paged_attention,
                 "paged_attention_verify": paged_attention_verify,
                 "flash_attention": flash_attention, "moe_gmm": moe_gmm}
+    kernel_paths = {"paged": paged_path, "flash": flash_path,
+                    "gmm": gmm_path}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1503,9 +1611,11 @@ def main() -> int:
 
     # -- phase 2: kernels -----------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    paged_cases = check_paged(torch, gen, paged_attention, paged_attention_ref)
+    paged_cases = check_paged(torch, gen, paged_attention, paged_attention_ref,
+                              paged_path)
     verify_cases = check_verify(torch, gen, paged_attention_verify,
-                                paged_attention_verify_ref, paged_attention)
+                                paged_attention_verify_ref, paged_attention,
+                                paged_path)
     flash_cases = check_flash(torch, gen, flash_attention, attention_ref,
                               flash_path)
     gmm_cases = check_gmm(torch, gen, moe_gmm, gmm_ref, gmm_path)
@@ -1514,10 +1624,7 @@ def main() -> int:
                                           "flash": flash_cases,
                                           "moe_gmm": gmm_cases}))
     cfg = configs.get_config("smollm-360m")
-    # verify timing positions: the spec trace's first 8 requests, 16 tokens
-    # into their decode
-    positions = [len(r.tokens) + 16 for r in spec_trace(traces, cfg,
-                                                         args.seed)[:8]]
+    positions = verify_positions(traces, cfg, args.seed)
     paged_t = time_paged(torch, gen, paged_attention, paged_attention_ref)
     verify_t = time_verify(torch, gen, paged_attention_verify,
                            paged_attention_verify_ref, positions)
@@ -1529,6 +1636,13 @@ def main() -> int:
                                     "library": verify_t["library_note"]},
          "flash_attention": [flash_t["shape"], flash_t["s383"]["shape"]],
          "moe_gmm": [gmm_t["shape"], gmm_t["prefill"]["shape"]]}))
+    print("paged kernels beside SDPA on the same live K / V, gathered and "
+          "padded beforehand (not the same function): " + json.dumps(
+              {"paged_attention": {"device_ms": paged_t["device_ms"],
+                                   "dense_sdpa": paged_t["dense_sdpa"]},
+               "paged_attention_verify": {
+                   "device_ms": verify_t["device_ms"],
+                   "dense_sdpa": verify_t["dense_sdpa"]}}))
 
     # -- phase 3: the engine on smollm-360m -----------------------------------
     params = model_lib.init_params(
@@ -1540,9 +1654,10 @@ def main() -> int:
     reset_counts(counters)
     eng, stats, wall = serve(torch, eng_mod, params, cfg, trace, "kernel")
     paged_n, flash_n = paged_attention.launches, flash_attention.launches
-    flash_paths = check_mma({"flash_attention": flash_attention},
-                            {"flash_attention": flash_n}, "engine")[
-                                "flash_attention"]
+    engine_paths = check_bodies(
+        counters, {name: fn.launches for name, fn in counters.items()},
+        "engine", main_bodies(torch, kernel_paths, cfg))
+    flash_paths = engine_paths["flash_attention"]
     check(paged_attention_verify.launches == 0,
           "the plain engine launched the verify kernel")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1570,6 +1685,7 @@ def main() -> int:
         "peak_mem_gb": peak_gb, "p50_latency_ticks": stats["p50_latency"],
         "p99_latency_ticks": stats["p99_latency"],
         "goodput": stats["goodput"], "paged_launches": paged_n,
+        "paged_paths": engine_paths["paged_attention"],
         "flash_launches": flash_n, "flash_paths": flash_paths,
         "capture_logits": True}))
     ref_trace = make_trace(traces, cfg, args.seed)
@@ -1624,7 +1740,8 @@ def main() -> int:
         device="cuda")
     drafty = spec_mod.make_draft_friendly(params, cfg, SPEC_DEPTH)
     spec_rep, verify_n = spec_phase(torch, eng_mod, traces, model_lib, api,
-                                    drafty, cfg, args.seed, counters)
+                                    drafty, cfg, args.seed, counters,
+                                    kernel_paths)
     print("spec decode: " + json.dumps(spec_rep))
     long = [dataclasses.replace(r, params=dataclasses.replace(
         r.params, max_new_tokens=128)) for r in spec_trace(traces, cfg,
@@ -1637,13 +1754,14 @@ def main() -> int:
               + json.dumps(prof))
     del drafty
     group_rep = group_phase(torch, eng_mod, groups, model_lib, api, params,
-                            cfg, args.seed, counters)
+                            cfg, args.seed, counters, kernel_paths)
     print("slot groups: " + json.dumps(group_rep))
     del params
 
     # -- phase 6: MoE serving on granite-moe-3b-a800m -------------------------
     moe_rep, gmm_n = moe_phase(torch, configs, eng_mod, traces, model_lib, api,
-                               moe_mod, router, spec_mod, args.seed, counters)
+                               moe_mod, router, spec_mod, args.seed, counters,
+                               kernel_paths)
     print("moe serving: " + json.dumps(moe_rep))
 
     # -- phase 7: the paper's VLSI extraction pipeline ------------------------
@@ -1657,15 +1775,18 @@ def main() -> int:
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:161",
-         "launches": paged_n, **{k: paged_t[k] for k in (
+         "launches": paged_n, "paths": engine_paths["paged_attention"],
+         **{k: paged_t[k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}},
+             "library_ms", "device_ms")}},
         {"name": "paged_attention_verify", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:118",
-         "launches": verify_n, **{k: verify_t[k] for k in (
+         "launches": verify_n,
+         "paths": spec_rep["spec"]["paths"]["paged_attention_verify"],
+         **{k: verify_t[k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}},
+             "library_ms", "device_ms")}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:70",

@@ -31,10 +31,10 @@ _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)   # an int the entry point writes back
 # C signatures of the entry points in csrc/ (pointers and the stream as void*)
 SIGNATURES = {
-    "repro_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _P],
-    "repro_paged_attention_verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _I, _I, _I, _I, _P],
+    "repro_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _P, _IP],
+    "repro_paged_attention_verify": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _I, _I, _I, _I, _I, _P, _IP],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                               _IP],
     "repro_moe_gmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _IP],

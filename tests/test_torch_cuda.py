@@ -10,6 +10,7 @@ and skips otherwise (never at import time). This file imports no JAX, so it
 also runs on the machine with the card:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
+    python -m pytest -m cuda tests/test_torch_cuda.py -k "paged or verify"
 """
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from repro_torch.core import scheduler
 from repro_torch.core.vlsi import extractor, layout, reference
 from repro_torch.kernels import flash_attention as flash_pkg
 from repro_torch.kernels import moe_gmm as gmm_pkg
+from repro_torch.kernels import paged_attention as paged_pkg
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.grid_step import grid_step, grid_step_ref
 from repro_torch.kernels.moe_gmm import gmm_ref, moe_gmm
@@ -43,7 +45,22 @@ def card():
     return torch.device("cuda")
 
 
-def _paged_inputs(seed, b, h, hk, d, page, maxp, dtype, device):
+# The worst (batch, head, row) of ||out - ref|| / ||ref|| over the head dim
+# (chip_smoke.py's PAGED_ROW_TOL and FLASH_ROW_TOL): a late row's values over
+# ~1,000 positions are ~0.03, below the absolute bf16 limit, so a split lost
+# or mis-weighted in the merge shows only here.
+ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+PAGED_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+
+
+def _row_rel_err(out, ref):
+    o, r = out.float(), ref.float()
+    return ((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)
+            ).max().item()
+
+
+def _paged_inputs(seed, b, h, hk, d, page, maxp, dtype, device,
+                  lengths=None):
     rng = np.random.default_rng(seed)
     num_pages = b * maxp + 1
     q = torch.as_tensor(rng.standard_normal((b, h, d)), dtype=torch.float32)
@@ -52,7 +69,9 @@ def _paged_inputs(seed, b, h, hk, d, page, maxp, dtype, device):
     vp = torch.as_tensor(rng.standard_normal((num_pages, page, hk, d)),
                          dtype=torch.float32)
     kp[0], vp[0] = 1e4, -1e4
-    lengths = rng.integers(1, maxp * page + 1, size=b).astype(np.int32)
+    if lengths is None:
+        lengths = rng.integers(1, maxp * page + 1, size=b)
+    lengths = np.asarray(lengths, np.int32)
     free = list(rng.permutation(np.arange(1, num_pages)))
     table = np.zeros((b, maxp), np.int32)
     for i in range(b):
@@ -63,24 +82,37 @@ def _paged_inputs(seed, b, h, hk, d, page, maxp, dtype, device):
             torch.as_tensor(lengths, device=device))
 
 
+def _run_counted(fn, args, path):
+    """Call a paged wrapper; assert it counted one launch, under ``path``."""
+    n0, p0 = fn.launches, dict(fn.launches_by_path)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    assert fn.launches_by_path[path] == p0[path] + 1, fn.launches_by_path
+    return out
+
+
 @pytest.mark.parametrize("b,h,hk,d", [(3, 4, 4, 64), (8, 15, 5, 64),
                                       (2, 8, 1, 128), (2, 4, 2, 16)])
 @pytest.mark.parametrize("page", [8, 16])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 5e-2)])
 def test_paged_kernel_matches_plain(card, b, h, hk, d, page, dtype, tol):
+    """Within ``tol`` absolute and ``ROW_TOL`` by row; the launch counted
+    under the body ``kernel_path`` names."""
     args = _paged_inputs(b + page, b, h, hk, d, page, 6, dtype, card)
-    n0 = paged_attention.launches
-    out = paged_attention(*args)
-    torch.cuda.synchronize()
-    assert paged_attention.launches == n0 + 1
+    out = _run_counted(paged_attention, args,
+                       paged_pkg.kernel_path(dtype))
     ref = paged_attention_ref(*args)
     assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert _row_rel_err(out, ref) <= ROW_TOL[dtype]
 
 
-def _verify_inputs(seed, b, sq, h, hk, d, page, maxp, dtype, device):
+def _verify_inputs(seed, b, sq, h, hk, d, page, maxp, dtype, device,
+                   pos=None):
     """Ragged first positions, one lane at a page boundary and one whose
-    last rows run past the table's capacity; a +-1e4 null page."""
+    last rows run past the table's capacity (or ``pos``); a +-1e4 null
+    page."""
     rng = np.random.default_rng(seed)
     num_pages = b * maxp + 1
     q = torch.as_tensor(rng.standard_normal((b, sq, h, d)),
@@ -90,9 +122,11 @@ def _verify_inputs(seed, b, sq, h, hk, d, page, maxp, dtype, device):
     vp = torch.as_tensor(rng.standard_normal((num_pages, page, hk, d)),
                          dtype=torch.float32)
     kp[0], vp[0] = 1e4, -1e4
-    pos = rng.integers(0, maxp * page - sq + 1, size=b).astype(np.int32)
-    pos[0] = page
-    pos[-1] = maxp * page - max(sq - 2, 1)
+    if pos is None:
+        pos = rng.integers(0, maxp * page - sq + 1, size=b)
+        pos[0] = page
+        pos[-1] = maxp * page - max(sq - 2, 1)
+    pos = np.asarray(pos, np.int32)
     free = list(rng.permutation(np.arange(1, num_pages)))
     table = np.zeros((b, maxp), np.int32)
     for i in range(b):
@@ -109,13 +143,14 @@ def _verify_inputs(seed, b, sq, h, hk, d, page, maxp, dtype, device):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 5e-2)])
 def test_verify_kernel_matches_plain(card, b, h, hk, d, sq, dtype, tol):
+    """Within ``tol`` absolute and ``ROW_TOL`` by row; the launch counted
+    under the body ``kernel_path`` names."""
     args = _verify_inputs(b * 10 + sq, b, sq, h, hk, d, 16, 6, dtype, card)
-    n0 = paged_attention_verify.launches
-    out = paged_attention_verify(*args)
-    torch.cuda.synchronize()
-    assert paged_attention_verify.launches == n0 + 1
+    out = _run_counted(paged_attention_verify, args,
+                       paged_pkg.kernel_path(dtype))
     ref = paged_attention_verify_ref(*args)
     assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert _row_rel_err(out, ref) <= ROW_TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -126,6 +161,96 @@ def test_verify_kernel_sq1_is_the_decode_kernel(card, dtype):
     dec = paged_attention(q[:, 0].contiguous(), kp, vp, table, pos + 1)
     torch.cuda.synchronize()
     assert torch.equal(out[:, 0], dec)
+
+
+def _split_edges(b, hk, maxp, page):
+    """The split width of ``split_rule`` at these shapes and the capacity."""
+    nsplit, pps = paged_pkg.split_rule(b, hk, maxp, page)
+    return pps * page, maxp * page
+
+
+@pytest.mark.parametrize("maxp", [6, 32, 96, 128])
+@pytest.mark.parametrize("grp", [1, 3, 8])
+@pytest.mark.parametrize("d", paged_pkg.ops.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_split_edges(card, maxp, grp, d, dtype):
+    """Decode at lengths 1, page - 1, page, page + 1, a split's width +- 1
+    and the table's capacity; tables of 6-128 pages; G of 1, 3 and 8:
+    within the absolute and row limits, the body ``kernel_path`` names, and
+    the +-1e4 null page never read."""
+    b, hk, page = 8, 2, 16
+    width, cap = _split_edges(b, hk, maxp, page)
+    lengths = [min(max(n, 1), cap) for n in (1, page - 1, page, page + 1,
+                                             width - 1, width, width + 1,
+                                             cap)]
+    q, kp, vp, table, lens = _paged_inputs(maxp * 31 + grp * 7 + d, b,
+                                           hk * grp, hk, d, page, maxp,
+                                           dtype, card, lengths)
+    out = _run_counted(paged_attention, (q, kp, vp, table, lens),
+                       paged_pkg.kernel_path(dtype))
+    ref = paged_attention_ref(q, kp, vp, table, lens)
+    assert (out.float() - ref.float()).abs().max().item() <= PAGED_TOL[dtype]
+    assert _row_rel_err(out, ref) <= ROW_TOL[dtype]
+    kp[0], vp[0] = 0.0, 0.0
+    assert torch.equal(paged_attention(q, kp, vp, table, lens), out)
+
+
+@pytest.mark.parametrize("maxp", [6, 32, 96, 128])
+@pytest.mark.parametrize("grp", [1, 3, 8])
+@pytest.mark.parametrize("sq", [1, 2, 5, 7])
+@pytest.mark.parametrize("d", paged_pkg.ops.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_split_edges(card, maxp, grp, sq, d, dtype):
+    """Verify with rows straddling page and split edges (first positions 0,
+    page - 1, page, a split's width - Sq / 2, width - 1, width), one lane
+    ending on the capacity and one whose last rows run past it: within the
+    absolute and row limits, the body ``kernel_path`` names, the null page
+    never read, and each row bitwise the decode kernel at its position."""
+    b, hk, page = 8, 2, 16
+    width, cap = _split_edges(b, hk, maxp, page)
+    pos = [min(max(p0, 0), cap - 1) for p0 in (
+        0, page - 1, page, width - sq // 2 - 1, width - 1, width, cap - sq,
+        cap - max(sq - 2, 1))]
+    q, kp, vp, table, p = _verify_inputs(maxp * 37 + grp * 5 + sq + d, b, sq,
+                                         hk * grp, hk, d, page, maxp, dtype,
+                                         card, pos)
+    out = _run_counted(paged_attention_verify, (q, kp, vp, table, p),
+                       paged_pkg.kernel_path(dtype))
+    ref = paged_attention_verify_ref(q, kp, vp, table, p)
+    assert (out.float() - ref.float()).abs().max().item() <= PAGED_TOL[dtype]
+    assert _row_rel_err(out, ref) <= ROW_TOL[dtype]
+    for r in range(sq):             # a row past the capacity stops at it
+        dec = paged_attention(q[:, r].contiguous(), kp, vp, table,
+                              (p + r + 1).clamp(max=cap))
+        assert torch.equal(out[:, r], dec), r
+    kp[0], vp[0] = 0.0, 0.0
+    assert torch.equal(paged_attention_verify(q, kp, vp, table, p), out)
+
+
+@pytest.mark.parametrize("which", ["q", "pages"])
+@pytest.mark.parametrize("sq", [0, 5])
+def test_paged_misaligned_bf16_takes_cuda_core(card, which, sq):
+    """bf16 decode (G = 8) and verify (5 x 3 rows) with a query or the page
+    pools offset by one element from a 16-byte boundary take the CUDA-core
+    body and agree with the plain version."""
+    if sq:
+        args = list(_verify_inputs(3, 4, sq, 15, 5, 64, 16, 32,
+                                   torch.bfloat16, card))
+        fn, ref_fn = paged_attention_verify, paged_attention_verify_ref
+    else:
+        args = list(_paged_inputs(4, 4, 8, 1, 64, 16, 32, torch.bfloat16,
+                                  card))
+        fn, ref_fn = paged_attention, paged_attention_ref
+    assert paged_pkg.kernel_path(torch.bfloat16) == "mma"
+    if which == "q":
+        args[0] = _misaligned(args[0])
+    else:
+        args[1], args[2] = _misaligned(args[1]), _misaligned(args[2])
+    assert paged_pkg.kernel_path(torch.bfloat16, False) == "cuda_core"
+    out = _run_counted(fn, args, "cuda_core")
+    ref = ref_fn(*args)
+    assert (out.float() - ref.float()).abs().max().item() <= 5e-2
+    assert _row_rel_err(out, ref) <= ROW_TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("d", [16, 32, 64, 128])

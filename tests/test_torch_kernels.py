@@ -33,6 +33,7 @@ from repro.kernels.paged_attention import \
 from repro_torch.core.vlsi import extractor, layout
 from repro_torch.kernels import flash_attention as flash_pkg
 from repro_torch.kernels import moe_gmm as gmm_pkg
+from repro_torch.kernels import paged_attention as paged_pkg
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.grid_step import grid_step, grid_step_ref
 from repro_torch.kernels.moe_gmm import gmm_ref, moe_gmm
@@ -187,6 +188,138 @@ def test_verify_ignores_dirty_null_page():
                                                          pos)))
 
 
+LOG2E = 1.4426950408889634
+
+
+def split_merge_model(q, kp, vp, table, first, nsplit, pps):
+    """Plain model of the CUDA kernels' split-K over pages: the dense
+    reference's positions cut at split boundaries (``pps`` pages each,
+    capped at the table), each split's running max m (log2 domain), sum l
+    and unnormalised accumulator formed over the positions a row attends,
+    then merged per row in split order, 8 splits at a time (16 where there
+    are more than 8) into a running state, skipping the splits that hold no
+    live position of that row, as the merge kernel does. q: (B, Sq, H, D)
+    fp32; first: (B,) int32 first query positions -> (B, Sq, H, D)."""
+    chunk = 16 if nsplit > 8 else 8
+    b, sq, h, d = q.shape
+    _, page, hk, _ = kp.shape
+    maxp = table.shape[1]
+    cap, width = maxp * page, pps * page
+    idx = table.long()
+    k = kp[idx].reshape(b, cap, hk, d)
+    v = vp[idx].reshape(b, cap, hk, d)
+    qf = q.reshape(b, sq, hk, h // hk, d) * (LOG2E / d ** 0.5)
+    s = torch.einsum("bqkgd,btkd->bkqgt", qf, k)
+    lim = (first.long()[:, None] + torch.arange(sq)).clamp(max=cap - 1)
+    live = torch.arange(cap) <= lim[:, None, :, None, None]
+    parts = []
+    for i in range(nsplit):
+        cut = slice(i * width, min((i + 1) * width, cap))
+        sv = torch.where(live[..., cut], s[..., cut], torch.tensor(-1e30))
+        m = sv.amax(-1)
+        p = torch.where(live[..., cut], torch.exp2(sv - m[..., None]),
+                        torch.tensor(0.0))
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bkqgt,btkd->bkqgd", p, v[:, cut]),
+                      live[..., cut].any(-1)))
+    mx = torch.full_like(parts[0][0], -1e30)
+    den, num = torch.zeros_like(mx), torch.zeros_like(parts[0][2])
+    for c0 in range(0, nsplit, chunk):
+        group = parts[c0:c0 + chunk]
+        mn = mx
+        for m, _, _, has in group:
+            mn = torch.where(has, torch.maximum(mn, m), mn)
+        corr = torch.exp2(mx - mn)
+        den, num, mx = den * corr, num * corr[..., None], mn
+        for m, l, acc, has in group:
+            a = torch.where(has, torch.exp2(m - mx), torch.tensor(0.0))
+            den = den + a * l
+            num = num + a[..., None] * acc
+    out = num / den.clamp_min(1e-30)[..., None]
+    return out.permute(0, 2, 1, 3, 4).reshape(b, sq, h, d)
+
+
+def _splits(kind, b, hk, maxp, page):
+    """(nsplit, pages_per_split): the wrapper's rule, one page a split, or
+    three pages a split (not a whole tile)."""
+    if kind == "rule":
+        return paged_pkg.split_rule(b, hk, maxp, page)
+    pps = 1 if kind == "page" else 3
+    return -(-maxp // pps), pps
+
+
+def _table_for(rng, b, maxp, page, reach):
+    """A block table mapping the pages of positions < reach[i], null past."""
+    free = list(rng.permutation(np.arange(1, b * maxp + 1)))
+    table = np.zeros((b, maxp), np.int32)
+    for i in range(b):
+        for j in range(min(maxp, -(-int(reach[i]) // page))):
+            table[i, j] = free.pop()
+    return table
+
+
+@pytest.mark.parametrize("grp", [1, 3])
+@pytest.mark.parametrize("kind", ["rule", "page", "ragged"])
+def test_split_merge_model_is_the_decode_reference(grp, kind):
+    """Decode at lengths on every edge of the split (1, page - 1, page, page
+    + 1, width - 1, width, width + 1, the capacity): the split-then-merge
+    model equals the plain version and the interpret-mode Pallas kernel at
+    1e-5 in fp32."""
+    b, hk, d, page, maxp = 8, 2, 32, 8, 24
+    nsplit, pps = _splits(kind, b, hk, maxp, page)
+    width, cap = pps * page, maxp * page
+    assert nsplit > 1
+    lengths = np.array([1, page - 1, page, page + 1, width - 1, width,
+                        width + 1, cap], np.int32)
+    rng = np.random.default_rng(grp * 10 + pps)
+    q = rng.standard_normal((b, hk * grp, d)).astype(np.float32)
+    kp = rng.standard_normal((b * maxp + 1, page, hk, d)).astype(np.float32)
+    vp = rng.standard_normal((b * maxp + 1, page, hk, d)).astype(np.float32)
+    kp[0], vp[0] = 1e4, -1e4
+    table = _table_for(rng, b, maxp, page, lengths)
+    arrs = (q, kp, vp, table, lengths)
+    tq, tk, tv, tt, tl = _t(*arrs)
+    out = split_merge_model(tq[:, None], tk, tv, tt, tl - 1, nsplit,
+                            pps)[:, 0].numpy()
+    np.testing.assert_allclose(out, paged_attention_ref(*_t(*arrs)).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    jarrs = [jnp.asarray(a) for a in arrs]
+    np.testing.assert_allclose(out, np.asarray(jax_paged(*jarrs,
+                                                         interpret=True)),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sq", [1, 2, 5, 7])
+@pytest.mark.parametrize("kind", ["rule", "page", "ragged"])
+def test_split_merge_model_is_the_verify_reference(sq, kind):
+    """Verify with rows straddling page and split edges, one lane ending on
+    the capacity and one running past it: the split-then-merge model equals
+    the plain version and the interpret-mode Pallas kernel at 1e-5 in
+    fp32."""
+    b, hk, grp, d, page, maxp = 8, 2, 3, 32, 8, 24
+    nsplit, pps = _splits(kind, b, hk, maxp, page)
+    width, cap = pps * page, maxp * page
+    pos = np.clip([0, page - 1, page, width - sq // 2 - 1, width - 1, width,
+                   cap - sq, cap - max(sq - 2, 1)], 0, cap - 1)
+    pos = pos.astype(np.int32)
+    rng = np.random.default_rng(sq * 10 + pps)
+    q = rng.standard_normal((b, sq, hk * grp, d)).astype(np.float32)
+    kp = rng.standard_normal((b * maxp + 1, page, hk, d)).astype(np.float32)
+    vp = rng.standard_normal((b * maxp + 1, page, hk, d)).astype(np.float32)
+    kp[0], vp[0] = 1e4, -1e4
+    table = _table_for(rng, b, maxp, page, pos + sq)
+    arrs = (q, kp, vp, table, pos)
+    tq, tk, tv, tt, tp = _t(*arrs)
+    out = split_merge_model(tq, tk, tv, tt, tp, nsplit, pps).numpy()
+    np.testing.assert_allclose(
+        out, paged_attention_verify_ref(*_t(*arrs)).numpy(), rtol=1e-5,
+        atol=1e-5)
+    jarrs = [jnp.asarray(a) for a in arrs]
+    np.testing.assert_allclose(out,
+                               np.asarray(jax_verify(*jarrs, interpret=True)),
+                               rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("b,h,hk,s,d", [
     (2, 4, 2, 256, 64),     # GQA, whole 128-blocks
     (1, 15, 5, 128, 64),    # smollm-360m width
@@ -305,6 +438,37 @@ class TestWrappers:
         assert flash_pkg.kernel_path(dtype, aligned) == want
         assert want in flash_pkg.ops.PATHS
 
+    @pytest.mark.parametrize("dtype,aligned,want", [
+        (torch.bfloat16, True, "mma"), (torch.bfloat16, False, "cuda_core"),
+        (torch.float32, True, "cuda_core"),
+        (torch.float32, False, "cuda_core")])
+    def test_paged_path_is_a_function_of_dtype(self, dtype, aligned, want):
+        """Decode and verify, any rows: one rule for both entries."""
+        assert paged_pkg.kernel_path(dtype, aligned) == want
+        assert want in paged_pkg.ops.PATHS
+
+    @pytest.mark.parametrize("b,hk,maxp,page,want", [
+        (8, 5, 96, 16, (12, 8)),     # smollm decode: 480 CTAs
+        (8, 5, 32, 16, (8, 4)),      # smollm verify at max_cache 512
+        (8, 8, 96, 16, (8, 12)),     # granite decode
+        (8, 5, 6, 16, (2, 4)),
+        (3, 4, 6, 8, (1, 8)),        # one split: the output written directly
+        (1, 1, 4096, 16, (512, 8)),
+        (64, 8, 4096, 16, (8, 512)),  # capped at MAX_SPLIT_PAGES
+        (8, 5, 20, 12, (4, 5))])     # a page that does not divide a tile
+    def test_paged_split_is_a_function_of_shapes(self, b, hk, maxp, page,
+                                                 want):
+        """Every page of the table in exactly one split, each split a whole
+        number of tiles (or the cap), and no more than about TARGET_CTAS
+        CTAs unless a split is already one tile or the cap."""
+        nsplit, pps = paged_pkg.split_rule(b, hk, maxp, page)
+        assert (nsplit, pps) == want
+        assert (nsplit - 1) * pps < maxp <= nsplit * pps
+        tile_pages = max(1, paged_pkg.ops.TILE_TOKENS // page)
+        assert pps % tile_pages == 0 or pps == paged_pkg.ops.MAX_SPLIT_PAGES
+        assert b * hk * nsplit <= 2 * paged_pkg.ops.TARGET_CTAS or \
+            pps in (tile_pages, paged_pkg.ops.MAX_SPLIT_PAGES)
+
     @pytest.mark.parametrize("dtype,d,f,aligned,want", [
         (torch.bfloat16, 1536, 512, True, "mma"),      # decode gate / up
         (torch.bfloat16, 512, 1536, True, "mma"),      # decode down
@@ -372,10 +536,11 @@ class TestWrappers:
         with pytest.raises(ValueError, match="contiguous"):
             paged_attention_verify(q.transpose(1, 2).contiguous()
                                    .transpose(1, 2), kp, vp, table, pos)
-        with pytest.raises(ValueError, match="shared memory"):
-            big = torch.zeros(2, 64, 32, 128)
-            pages = torch.zeros(3, 64, 8, 128)
-            paged_attention_verify(big, pages, pages, table, pos)
+        # any number of rows a kv head: the kernels take them in row blocks
+        big = torch.zeros(2, 64, 32, 128)
+        pages = torch.zeros(3, 64, 8, 128)
+        assert paged_attention_verify(big, pages, pages, table % 3,
+                                      pos).shape == big.shape
 
     def test_flash_rejects_what_the_kernel_cannot_take(self):
         x = torch.randn(1, 4, 9, 32)
