@@ -38,9 +38,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    so paged decode and verify have no library time; beside them SDPA over
    the same live K / V already gathered into a padded contiguous layout
    (gather not timed) is printed, labelled as not the same function. Every
-   kernel but the grid step, whose calls at these shapes take about as long
-   on the host as on the device, also reports ``device_ms``
-   (``torch.profiler``'s device time a call).
+   kernel also reports ``device_ms`` (``torch.profiler``'s device time a
+   call; events time the wrappers' host work where a call's kernel is
+   short).
 3. Engine: smollm-360m at its full published config (32 layers, d_model
    960, 15/5 heads, head_dim 64, d_ff 2560, vocab 49,152, bf16; random
    weights from ``--seed``) serves 16 requests of ``synthetic_trace``
@@ -104,9 +104,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 7. The paper's VLSI extraction pipeline (``repro_torch.core.vlsi``): the
    grid-step kernel against its plain version, exactly (max error 0), at
    (16, 32), (40, 32), (33, 16), (64, 128), (8, 256), (1, 7), (80, 128)
-   and (4096, 4096), on extractor planes and on any int32 (negative labels,
-   cond values outside {0, 1}); its time, plain time and bound at 80 x 128
-   (the observer's plane) and 4096 x 4096. Then ``run_extraction`` on the
+   and (4096, 4096) through ``grid_step``, and through ``grid_step_planes``
+   on the stacks (4, 80, 128) (the observer's), (4, 40, 32), (3, 7, 5) (odd
+   H * W) and (4, 4096, 4096), and on stacks that start 1 or 2 words past
+   a 16-byte boundary; on extractor planes and on any int32 (negative
+   labels, cond values outside {0, 1}); every call on the body
+   ``kernel_path`` predicts ("vec4", 16-byte accesses, or "scalar"). Its
+   time (events and the profiler's device time), plain time and bound at
+   (80, 128), (4, 80, 128), (4, 40, 32), (4096, 4096) and (4, 4096, 4096).
+   Then ``run_extraction`` on the
    NAND layout (64 agents, seeds 1 and 2) on the card and on the CPU: the
    blackboard, cycle count and agents must be equal bit for bit. The
    paper's Fig. 3 run: the DFF tile (32 transistors, 80 x 128) with 175
@@ -115,9 +121,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    3 shape (finder crash, labeller spike, labellers die out, all agents end
    as propagators). The Fig. 4 sweep (NAND at 64, 128, 256 agents, seeds 0
    and 1) with its log-log slope. Every netlist must be equivalent to the
-   serial oracle, and every run must launch the grid-step kernel exactly 4
-   x (cycles + 1) times (the observer's test before each cycle and at the
-   end) and no other kernel. ``torch.profiler`` traces 20 cycles of the DFF
+   serial oracle, and every run must launch the grid-step kernel exactly
+   cycles + 1 times (the observer's test on its four label planes, one
+   launch, before each cycle and at the end), every time on the "vec4"
+   body, and no other kernel. ``torch.profiler`` traces 20 cycles of the DFF
    run from cycle 100. Last, the immune straggler scheduler simulates a
    16-worker, 400-step fleet with one straggler on the card and on the CPU
    (relative 1e-6) and must beat the static assignment.
@@ -204,23 +211,60 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 20) -> float:
-    """Mean device time of one call of ``fn``: its kernels' device time,
-    summed by ``torch.profiler`` over ``iters`` calls after a warm-up call.
-    CUDA events around back-to-back calls read the host's launch rate
-    instead where a call's host time (a wrapper's checks, allocation and
-    ``ctypes`` call) exceeds its kernel's."""
+def device_rows(torch, warm, run, cpu: bool = True) -> tuple:
+    """``run()`` under ``torch.profiler`` (CUDA activity, and the host's
+    with ``cpu``), after ``warm()`` in the profiler's warm-up step; both
+    end in a sync. Returns (run's wall ms, [(device ms, launches, name)] of
+    the device rows with device time, largest first). On an H100 the
+    profiler left launches unrecorded: the first ones of a session (a DFF
+    window one grid-step call short), which the warm-up step now takes,
+    and, late in a long process, some of a short window's (4 of 20, or all
+    20), which ``device_ms`` detects and measures again."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    done = []
+    with profile(activities=acts, schedule=schedule(wait=0, warmup=1,
+                                                    active=1),
+                 on_trace_ready=lambda p: done.append(p.key_averages())) \
+            as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    # device-side rows only: an operator's row repeats its kernels' time,
+    # and the step's own range spans the whole window
+    rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
+            for ev in done[0]
+            if ev.device_type != DeviceType.CPU and ev.self_device_time_total
+            and not ev.key.startswith("ProfilerStep")]
+    return wall_ms, sorted(rows, reverse=True)
+
+
+def device_ms(torch, fn, iters: int = 20):
+    """Mean device time of one call of ``fn``: its kernels' device time,
+    summed by ``torch.profiler`` over ``iters`` calls after ``iters`` warm-up
+    calls. CUDA events around back-to-back calls read the host's launch rate
+    instead where a call's host time (a wrapper's checks, allocation and
+    ``ctypes`` call) exceeds its kernel's. A window counts only where every
+    kernel it recorded ran a whole multiple of ``iters`` times (a call
+    launches the same kernels each time); up to three windows, else None
+    (not measured)."""
+    def calls():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type != DeviceType.CPU)
-    return busy / 1e3 / iters
+
+    for _ in range(3):
+        _, rows = device_rows(torch, calls, calls, cpu=False)
+        if rows and all(n % iters == 0 for _, n, _ in rows):
+            return sum(ms for ms, _, _ in rows) / iters
+        print(f"device_ms: window of {iters} calls dropped, launches "
+              f"recorded {[(n, k[:40]) for _, n, k in rows]}", file=sys.stderr)
+    return None
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -712,13 +756,12 @@ def serve(torch, eng_mod, params, cfg, trace, backend: str):
 def profile_decode(torch, eng_mod, params, cfg, reqs, ecfg,
                    ticks: int = 10, router_bias=None) -> dict:
     """Where a decode tick's time goes: fill all 8 slots of an engine built
-    from ``ecfg`` with ``reqs``, warm up, then trace ``ticks`` ticks (plain
-    or spec, whichever ``ecfg`` runs) with ``torch.profiler``. Device busy
+    from ``ecfg`` with ``reqs``, warm up (three ticks, then one in the
+    profiler's warm-up step), then trace ``ticks`` ticks (plain or spec,
+    whichever ``ecfg`` runs) with ``torch.profiler``. Device busy
     time is the sum of the kernels' and copies' device time (one stream, so
     they do not overlap); the rest of the window's wall time is the device's
     idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     eng = eng_mod.Engine(params, cfg, ecfg, device="cuda",
                          router_bias=router_bias)
     for req in reqs[:eng.ecfg.num_slots]:
@@ -728,20 +771,14 @@ def profile_decode(torch, eng_mod, params, cfg, reqs, ecfg,
         eng.step()
     check(all(r is not None for r in eng.slots), "profile: slots not full")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         for _ in range(ticks):
             eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    wall_ms, rows = device_rows(torch, eng.step, run)
     check(all(r is not None for r in eng.slots),
           "profile: a request finished inside the window")
-    # device-side rows only: an operator's row repeats its kernels' time
-    rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
-            for ev in prof.key_averages()
-            if ev.device_type != DeviceType.CPU and ev.self_device_time_total]
-    rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     # paged_decode / paged_verify: the split launches and their merges
     ours = {name: sum(r[0] for r in rows if name in r[2]) / ticks
@@ -1302,6 +1339,14 @@ def moe_phase(torch, configs, eng_mod, traces, model_lib, api, moe_mod,
 # ---------------------------------------------------------------------------
 GRID_SHAPES = [(16, 32), (40, 32), (33, 16), (64, 128), (8, 256), (1, 7),
                (80, 128), (4096, 4096)]
+# stacks for grid_step_planes: the observer's (4, 80, 128), the NAND's
+# planes, an odd H * W (planes at odd word offsets, the 4-byte body), and
+# four full-size planes
+GRID_STACKS = [(4, 80, 128), (4, 40, 32), (3, 7, 5), (4, 4096, 4096)]
+# (stack, words past a 16-byte boundary): views that take the 4-byte body
+GRID_OFFSET_STACKS = [((4, 40, 32), 1), ((4, 80, 128), 2), ((3, 7, 5), 1)]
+GRID_TIMED = [(80, 128), (4, 80, 128), (4, 40, 32), (4096, 4096),
+              (4, 4096, 4096)]
 FIG3_AGENTS, FIG3_MAX_STEPS = 175, 6000
 FIG3_MARKS = (0, 5, 20, 50, 100, 200)
 # the JAX package's DFF run (175 agents, seed 0) ends after this many
@@ -1311,58 +1356,84 @@ FIG4_AGENTS, FIG4_SEEDS = (64, 128, 256), (0, 1)
 PROFILE_CYCLES, PROFILE_FROM = 20, 100
 
 
-def grid_inputs(torch, gen, h, w, kind: str):
-    """``extractor``: a conductor mask and labels on it (the observer's
-    planes); ``any_int32``: negative labels, cond values outside {0, 1}."""
+def grid_inputs(torch, gen, shape, kind: str, offset: int = 0):
+    """Labels and cond of ``shape`` as views ``offset`` int32 words into
+    fresh buffers. ``extractor``: a conductor mask and labels on it (the
+    observer's planes); ``any_int32``: negative labels, cond values outside
+    {0, 1}."""
+    n = int(np.prod(shape)) + offset
     if kind == "extractor":
-        cond = (torch.rand(h, w, generator=gen, device="cuda") < 0.6) \
+        cond = (torch.rand(n, generator=gen, device="cuda") < 0.6) \
             .to(torch.int32)
-        lab = torch.randint(0, 1000, (h, w), generator=gen, device="cuda",
+        lab = torch.randint(0, 1000, (n,), generator=gen, device="cuda",
                             dtype=torch.int32) * cond
     else:
-        lab = torch.randint(-50, 100, (h, w), generator=gen, device="cuda",
+        lab = torch.randint(-50, 100, (n,), generator=gen, device="cuda",
                             dtype=torch.int32)
-        cond = torch.randint(-3, 4, (h, w), generator=gen, device="cuda",
+        cond = torch.randint(-3, 4, (n,), generator=gen, device="cuda",
                              dtype=torch.int32)
-    return lab, cond
+    return lab[offset:].view(shape), cond[offset:].view(shape)
 
 
-def check_grid_step(torch, gen, grid_step, grid_step_ref) -> list:
-    """Exact equality with the plain version on every shape and input
-    kind."""
-    cases = []
-    for h, w in GRID_SHAPES:
+def check_grid_step(torch, gen, grid_step, grid_step_planes, grid_step_ref,
+                    kernel_path) -> list:
+    """Exact equality with the plain version on every shape, stack and input
+    kind, each call one launch on the body ``kernel_path`` predicts. With
+    ``grid_step_planes`` None (a tree from before it) only the planes."""
+    cases = [(shape, 0) for shape in GRID_SHAPES]
+    if grid_step_planes is not None:
+        cases += [(shape, 0) for shape in GRID_STACKS] + GRID_OFFSET_STACKS
+    out = []
+    for shape, offset in cases:
+        fn = grid_step if len(shape) == 2 else grid_step_planes
         for kind in ("extractor", "any_int32"):
-            lab, cond = grid_inputs(torch, gen, h, w, kind)
-            out = grid_step(lab, cond)
-            err = (out.long() - grid_step_ref(lab, cond).long()).abs().max()
-            err = int(err.item())
-            check(err == 0, f"grid_step {h}x{w} ({kind}): max error {err}")
-            cases.append({"shape": [h, w], "inputs": kind,
-                          "max_abs_err": err})
-    return cases
+            lab, cond = grid_inputs(torch, gen, shape, kind, offset)
+            path = kernel_path(shape[-1], aligned=offset % 4 == 0)
+            n0, p0 = grid_step.launches, grid_step.launches_by_path[path]
+            got = fn(lab, cond)
+            err = int((got.long() - grid_step_ref(lab, cond).long())
+                      .abs().max().item())
+            what = f"grid_step {shape} +{offset} words ({kind})"
+            check(err == 0, f"{what}: max error {err}")
+            check(grid_step.launches == n0 + 1
+                  and grid_step.launches_by_path[path] == p0 + 1,
+                  f"{what}: not one launch on the {path} body")
+            out.append({"shape": list(shape), "offset_words": offset,
+                        "inputs": kind, "path": path, "max_abs_err": err})
+    return out
 
 
-def time_grid_step(torch, gen, grid_step, grid_step_ref) -> dict:
-    """The kernel, its plain version and the bound at the observer's plane
-    (80 x 128, the DFF tile) and at 4096 x 4096. A call reads labels and
-    cond and writes out once (12 bytes a cell) and does ~9 int32 operations
-    a cell (4 neighbour tests, 4 maxima, the cell's own test), counted
-    against the CUDA-core rate. No single PyTorch call computes this
-    function, so there is no library time."""
+def time_grid_step(torch, gen, grid_step, grid_step_planes,
+                   grid_step_ref) -> dict:
+    """The kernel, its plain version and the bound at GRID_TIMED: the
+    observer's plane and stack (the DFF tile's 80 x 128, four label planes),
+    the NAND's stack, and a full-size plane and stack. A call reads labels
+    and cond and writes out once (12 bytes a cell) and does ~9 int32
+    operations a cell (4 neighbour tests, 4 maxima, the cell's own test),
+    counted against the CUDA-core rate. ``ms`` is CUDA events over
+    back-to-back calls (the wrapper's host time where the kernel is
+    shorter), ``device_ms`` the profiler's device time a call. No single
+    PyTorch call computes this function, so there is no library time. With
+    ``grid_step_planes`` None only the planes are timed."""
     out = {}
-    for h, w in ((80, 128), (4096, 4096)):
-        lab, cond = grid_inputs(torch, gen, h, w, "extractor")
-        iters = 200 if h * w < 10 ** 6 else 50
-        ms = cuda_ms(torch, lambda: grid_step(lab, cond), iters=iters)
+    for shape in GRID_TIMED:
+        if len(shape) == 3 and grid_step_planes is None:
+            continue
+        fn = grid_step if len(shape) == 2 else grid_step_planes
+        lab, cond = grid_inputs(torch, gen, shape, "extractor")
+        cells = int(np.prod(shape))
+        iters = 200 if cells < 10 ** 6 else 20
+        ms = cuda_ms(torch, lambda: fn(lab, cond), iters=iters)
+        dev = device_ms(torch, lambda: fn(lab, cond))
         plain_ms = cuda_ms(torch, lambda: grid_step_ref(lab, cond),
                            iters=iters)
-        err = int((grid_step(lab, cond).long()
+        err = int((fn(lab, cond).long()
                    - grid_step_ref(lab, cond).long()).abs().max().item())
-        bound_ms, by = bound(12 * h * w, 9 * h * w, "float32")
-        out[f"{h}x{w}"] = {"ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": bound_ms, "bound_by": by,
-                           "library_ms": None, "max_abs_err": err}
+        bound_ms, by = bound(12 * cells, 9 * cells, "float32")
+        out["x".join(map(str, shape))] = {
+            "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            "max_abs_err": err}
     return out
 
 
@@ -1388,11 +1459,10 @@ def netlist_ok(extractor, reference, grid, lay, what: str):
 def profile_extraction(torch, extractor, am, prng, lay) -> dict:
     """Where a cycle's time goes: the DFF run (175 agents, seed 0) stepped
     to cycle PROFILE_FROM, then PROFILE_CYCLES cycles of the run loop (the
-    observer's test, then one step) under ``torch.profiler``. Device busy
-    time is the sum of the kernels' and copies' device time (one stream);
-    the rest of the window's wall time is the device's idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    observer's test, then one step) under ``torch.profiler``, the two
+    cycles before them in its warm-up step. Device busy time is the sum of
+    the kernels' and copies' device time (one stream); the rest of the
+    window's wall time is the device's idle share."""
     grid = extractor.make_grid(lay, "cuda")
     h, w = grid.shape[1:]
     model = extractor.make_extractor(FIG3_AGENTS, (h, w))
@@ -1409,18 +1479,11 @@ def profile_extraction(torch, extractor, am, prng, lay) -> dict:
             key, sub = prng.split(key, 2).unbind(0)
             grid, agents = model.step(grid, agents, sub, t)
 
-    cycles(0, PROFILE_FROM)
+    cycles(0, PROFILE_FROM - 2)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        cycles(PROFILE_FROM, PROFILE_CYCLES)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
-            for ev in prof.key_averages()
-            if ev.device_type != DeviceType.CPU and ev.self_device_time_total]
-    rows.sort(reverse=True)
+    wall_ms, rows = device_rows(
+        torch, lambda: cycles(PROFILE_FROM - 2, 2),
+        lambda: cycles(PROFILE_FROM, PROFILE_CYCLES))
     busy = sum(r[0] for r in rows)
     n = PROFILE_CYCLES
     return {"cycles": n, "from_cycle": PROFILE_FROM,
@@ -1451,20 +1514,28 @@ def vlsi_phase(torch, counters: dict, seed: int) -> tuple:
     from repro_torch.core import agent_model as am
     from repro_torch.core import scheduler
     from repro_torch.core.vlsi import extractor, layout, reference
-    from repro_torch.kernels.grid_step import grid_step, grid_step_ref
+    from repro_torch.kernels.grid_step import (grid_step, grid_step_planes,
+                                               grid_step_ref, kernel_path)
     report = {}
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    report["grid_step_checks"] = check_grid_step(torch, gen, grid_step,
-                                                 grid_step_ref)
-    timing = time_grid_step(torch, gen, grid_step, grid_step_ref)
+    report["grid_step_checks"] = check_grid_step(
+        torch, gen, grid_step, grid_step_planes, grid_step_ref, kernel_path)
+    timing = time_grid_step(torch, gen, grid_step, grid_step_planes,
+                            grid_step_ref)
     report["grid_step_timing"] = timing
 
-    def counted(fn, what):
+    def counted(fn, what, w):
         out, wall, n = run_counted(torch, counters, fn)
         cycles = out[1]
         want = {name: 0 for name in counters}
-        want["grid_step"] = 4 * (cycles + 1)     # one test before each cycle
+        # the observer's test before each cycle and at the end: one launch
+        # for its four label planes
+        want["grid_step"] = cycles + 1
         check(n == want, f"{what}: launches {n} != {want}")
+        by = path_counts(counters)["grid_step"]
+        check(by[kernel_path(w)] == n["grid_step"],
+              f"{what}: grid_step launches by body {by}; every one must "
+              f"take the {kernel_path(w)} body")
         return out, wall, n["grid_step"]
 
     # NAND, 64 agents: the card against the port on the CPU, bit for bit
@@ -1472,7 +1543,8 @@ def vlsi_phase(torch, counters: dict, seed: int) -> tuple:
     report["nand_card_vs_cpu"] = []
     for s in (1, 2):
         card, wall, n = counted(lambda: extractor.run_extraction(
-            nand, 64, seed=s, device="cuda"), f"nand seed {s}")
+            nand, 64, seed=s, device="cuda"), f"nand seed {s}",
+            nand.shape[-1])
         t0 = time.perf_counter()
         host = extractor.run_extraction(nand, 64, seed=s, device="cpu")
         host_wall = time.perf_counter() - t0
@@ -1489,7 +1561,7 @@ def vlsi_phase(torch, counters: dict, seed: int) -> tuple:
         lambda: extractor.run_extraction(dff, FIG3_AGENTS, seed=0,
                                          max_steps=FIG3_MAX_STEPS,
                                          record=True, device="cuda"),
-        "dff fig3")
+        "dff fig3", dff.shape[-1])
     check(steps < FIG3_MAX_STEPS, f"dff did not finish in {FIG3_MAX_STEPS}")
     sim = netlist_ok(extractor, reference, grid, dff, "dff fig3")
     late = steps - 1
@@ -1508,6 +1580,7 @@ def vlsi_phase(torch, counters: dict, seed: int) -> tuple:
         "equal_to_jax_count": steps == DFF_JAX_CYCLES, "wall_s": wall,
         "ms_per_cycle": 1e3 * wall / steps, "equivalent": True,
         "duplicates": sim.duplicates, "grid_step_launches": gs_n,
+        "grid_step_paths": path_counts(counters)["grid_step"],
         "shape": shape,
         "populations": {str(t): pops[t].tolist()
                         for t in (*FIG3_MARKS, late)},
@@ -1520,7 +1593,7 @@ def vlsi_phase(torch, counters: dict, seed: int) -> tuple:
         for s in FIG4_SEEDS:
             (g, c, _, _), _, _ = counted(lambda: extractor.run_extraction(
                 nand, n_agents, seed=s, max_steps=8000, device="cuda"),
-                f"fig4 n={n_agents} seed {s}")
+                f"fig4 n={n_agents} seed {s}", nand.shape[-1])
             netlist_ok(extractor, reference, g, nand,
                        f"fig4 n={n_agents} seed {s}")
             cyc.append(c)
@@ -1548,9 +1621,11 @@ def vlsi_phase(torch, counters: dict, seed: int) -> tuple:
     report["scheduler"] = {"workers": trace.shape[1], "steps": trace.shape[0],
                            **sched}
 
-    kern = {**{k: timing["80x128"][k] for k in (
+    # the main path's call: the observer's stack of four label planes
+    kern = {**{k: timing["4x80x128"][k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms")}, "launches": gs_n}
+        "library_ms", "device_ms")}, "launches": gs_n,
+        "paths": report["fig3"]["grid_step_paths"]}
     kern["max_abs_err"] = max(c["max_abs_err"]
                               for c in report["grid_step_checks"])
     return report, kern

@@ -33,7 +33,8 @@ The observer's ``done_fn`` (Swarm's observer) ends a run when every
 conductor cell is labelled, the labels are a max-diffusion fixpoint, every
 gate / contact region carries a record, and every record agrees with the
 fixpoint labels. Its fixpoint test is the hand-written ``grid_step`` kernel
-(4 launches per test on the card). The kernel pads the grid's edges with
+on the four label planes at once (``grid_step_planes``, one launch per test
+on the card). The kernel pads the grid's edges with
 zeros where the reference's ``_shift_max`` wraps; the two agree because
 layouts carry an empty margin, which ``make_grid`` checks.
 """
@@ -47,7 +48,7 @@ import torch
 
 from .. import immune
 from ... import prng
-from ...kernels.grid_step import grid_step
+from ...kernels.grid_step import grid_step_planes
 from ..agent_model import (AgentCtx, AgentModel, AgentUpdate, as_key,
                            no_writes, uniform_random_agents)
 from . import reference
@@ -684,10 +685,8 @@ def done_fn(grid: torch.Tensor) -> bool:
     diff_c = (grid[DIFF] > 0) & ~poly
     conds = torch.stack([grid[M1] > 0, grid[M2] > 0, poly, diff_c])
     labs = grid[LAB0:LAB0 + 4]
-    ok = (~conds | (labs > 0)).all()
-    cond_i = conds.to(I32)
-    for lyr in range(4):
-        ok = ok & (grid_step(labs[lyr], cond_i[lyr]) == labs[lyr]).all()
+    ok = (~conds | (labs > 0)).all() \
+        & (grid_step_planes(labs, conds.to(I32)) == labs).all()
     if not bool(ok):
         return False
 

@@ -38,7 +38,7 @@ SIGNATURES = {
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                               _IP],
     "repro_moe_gmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _IP],
-    "repro_grid_step": [_P, _P, _P, _I, _I, _P],
+    "repro_grid_step": [_P, _P, _P, _I, _I, _I, _P, _IP],
 }
 
 _LIB = None

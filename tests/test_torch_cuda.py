@@ -23,7 +23,10 @@ from repro_torch.kernels import flash_attention as flash_pkg
 from repro_torch.kernels import moe_gmm as gmm_pkg
 from repro_torch.kernels import paged_attention as paged_pkg
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
-from repro_torch.kernels.grid_step import grid_step, grid_step_ref
+from repro_torch.kernels import grid_step as grid_pkg
+from repro_torch.kernels.grid_step import (grid_step, grid_step_planes,
+                                           grid_step_planes_ref,
+                                           grid_step_ref)
 from repro_torch.kernels.moe_gmm import gmm_ref, moe_gmm
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_ref,
@@ -444,39 +447,84 @@ def test_spec_engine_on_card_matches_oneshot(card):
             == req.out_tokens
 
 
+def _grid_inputs(dev, shape, seed, offset=0):
+    """Any-int32 labels and cond of ``shape`` (negative labels, cond values
+    outside {0, 1}), as views ``offset`` words into fresh buffers."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = int(np.prod(shape)) + offset
+    lab = torch.randint(-50, 100, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    cond = torch.randint(-3, 4, (n,), generator=g, device=dev,
+                         dtype=torch.int32)
+    return lab[offset:].view(shape), cond[offset:].view(shape)
+
+
+def _one_launch(fn, lab, cond, path):
+    """``fn(lab, cond)`` after a sync; asserts one launch, on ``path``."""
+    n0, p0 = grid_step.launches, grid_step.launches_by_path[path]
+    out = fn(lab, cond)
+    torch.cuda.synchronize()
+    assert grid_step.launches == n0 + 1
+    assert grid_step.launches_by_path[path] == p0 + 1
+    return out
+
+
+@pytest.mark.parametrize("planes", [0, 1, 4])
 @pytest.mark.parametrize("h,w", [(16, 32), (40, 32), (33, 16), (64, 128),
                                  (8, 256), (1, 7), (7, 1), (80, 128),
                                  (4096, 4096)])
-def test_grid_step_kernel_matches_plain(card, h, w):
+def test_grid_step_kernel_matches_plain(card, h, w, planes):
     """The extraction path's shape (80, 128), ragged and degenerate shapes
-    and a large plane: exact equality, including negative labels and cond
-    values outside {0, 1}."""
-    g = torch.Generator(device=card).manual_seed(h * 7919 + w)
-    lab = torch.randint(-50, 100, (h, w), generator=g, device=card,
-                        dtype=torch.int32)
-    cond = torch.randint(-3, 4, (h, w), generator=g, device=card,
-                         dtype=torch.int32)
+    and a large plane, on one plane (``grid_step``, planes = 0) and as
+    stacks of 1 and 4 different planes (``grid_step_planes``): exact
+    equality, including negative labels and cond values outside {0, 1}, one
+    launch a call on the body ``kernel_path`` predicts."""
+    shape = (h, w) if planes == 0 else (planes, h, w)
+    fn = grid_step if planes == 0 else grid_step_planes
+    lab, cond = _grid_inputs(card, shape, h * 7919 + w + planes)
+    out = _one_launch(fn, lab, cond, grid_pkg.kernel_path(w))
+    assert torch.equal(out, grid_step_planes_ref(lab, cond))
+    if planes:
+        for p in range(planes):
+            assert torch.equal(out[p], grid_step_ref(lab[p], cond[p]))
     n0 = grid_step.launches
-    out = grid_step(lab, cond)
-    torch.cuda.synchronize()
-    assert grid_step.launches == n0 + 1
-    assert torch.equal(out, grid_step_ref(lab, cond))
-    empty = torch.zeros((0, w), dtype=torch.int32, device=card)
-    assert grid_step(empty, empty).shape == (0, w)
-    assert grid_step.launches == n0 + 1
+    empty = torch.zeros((0, *shape[1:]), dtype=torch.int32, device=card)
+    assert fn(empty, empty).shape == empty.shape
+    assert grid_step.launches == n0
+
+
+@pytest.mark.parametrize("shape,offset", [((4, 40, 30), 0), ((3, 7, 5), 0),
+                                          ((4, 40, 32), 1), ((4, 80, 128), 2),
+                                          ((2, 33, 16), 3), ((5, 9, 11), 1),
+                                          ((1, 262148, 130), 0)])
+def test_grid_step_scalar_body_inputs(card, shape, offset):
+    """Stacks the 16-byte body cannot take: W not a multiple of 4, an odd
+    H * W (planes at odd word offsets), and views that start 1-3 words past
+    a 16-byte boundary. Each takes the scalar body, exactly. The last plane
+    is too tall for one 4-row chunk a band within grid.y's limit, so its
+    bands run two chunks."""
+    lab, cond = _grid_inputs(card, shape, sum(shape) + offset, offset)
+    assert grid_pkg.kernel_path(shape[-1], aligned=offset == 0) == "scalar"
+    out = _one_launch(grid_step_planes, lab, cond, "scalar")
+    assert torch.equal(out, grid_step_planes_ref(lab, cond))
+    if offset:   # the same planes, aligned, on the 16-byte body where W allows
+        path = grid_pkg.kernel_path(shape[-1])
+        assert torch.equal(_one_launch(grid_step_planes, lab.clone(),
+                                       cond.clone(), path), out)
 
 
 @pytest.mark.parametrize("seed", [1])
 def test_vlsi_nand_on_card_equals_cpu(card, seed):
     """The NAND extraction (64 agents) on the card equals the port's CPU run
     bit for bit (blackboard, cycles, agents); the observer's fixpoint test
-    launches the grid-step kernel four times before every cycle and once
-    more at the end."""
+    launches the grid-step kernel once (its four label planes as one stack)
+    before every cycle and once more at the end, on the 16-byte body."""
     lay = layout.nand_layout()
-    n0 = grid_step.launches
+    n0, v0 = grid_step.launches, grid_step.launches_by_path["vec4"]
     grid, steps, _, agents = extractor.run_extraction(lay, 64, seed=seed,
                                                       device=card)
-    assert grid_step.launches - n0 == 4 * (steps + 1)
+    assert grid_step.launches - n0 == steps + 1
+    assert grid_step.launches_by_path["vec4"] - v0 == steps + 1
     hgrid, hsteps, _, hagents = extractor.run_extraction(lay, 64, seed=seed,
                                                          device="cpu")
     assert steps == hsteps < 4000

@@ -32,10 +32,13 @@ from repro.kernels.paged_attention import \
     paged_attention_verify_ref as jax_verify_ref
 from repro_torch.core.vlsi import extractor, layout
 from repro_torch.kernels import flash_attention as flash_pkg
+from repro_torch.kernels import grid_step as grid_pkg
 from repro_torch.kernels import moe_gmm as gmm_pkg
 from repro_torch.kernels import paged_attention as paged_pkg
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
-from repro_torch.kernels.grid_step import grid_step, grid_step_ref
+from repro_torch.kernels.grid_step import (grid_step, grid_step_planes,
+                                           grid_step_planes_ref,
+                                           grid_step_ref)
 from repro_torch.kernels.moe_gmm import gmm_ref, moe_gmm
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_ref,
@@ -575,6 +578,34 @@ class TestWrappers:
         with pytest.raises(ValueError, match="device"):
             grid_step(lab.to("meta"), cond)
 
+    def test_grid_step_planes_counts_no_launch_and_checks_contract(self):
+        lab, cond = (torch.as_tensor(a) for a in grid_stack(0, 3, 6, 5))
+        n0, by0 = grid_step.launches, dict(grid_step.launches_by_path)
+        assert torch.equal(grid_step_planes(lab, cond),
+                           grid_step_planes_ref(lab, cond))
+        assert grid_step.launches == n0
+        assert grid_step.launches_by_path == by0
+        with pytest.raises(TypeError, match="int32"):
+            grid_step_planes(lab.long(), cond)
+        with pytest.raises(TypeError, match="int32"):
+            grid_step_planes(lab, cond.bool())
+        with pytest.raises(ValueError, match="bad shapes"):
+            grid_step_planes(lab[0], cond[0])
+        with pytest.raises(ValueError, match="bad shapes"):
+            grid_step_planes(lab[None], cond[None])
+        with pytest.raises(ValueError, match="bad shapes"):
+            grid_step_planes(lab, cond[:2].contiguous())
+        with pytest.raises(ValueError, match="bad shapes"):
+            grid_step_planes(lab, cond[:, :, :4].contiguous())
+        with pytest.raises(ValueError, match="contiguous"):
+            grid_step_planes(lab.transpose(1, 2), cond.transpose(1, 2))
+        with pytest.raises(ValueError, match="contiguous"):
+            grid_step_planes(lab[:, ::2], cond[:, ::2])
+        with pytest.raises(ValueError, match="device"):
+            grid_step_planes(lab.to("meta"), cond)
+        with pytest.raises(ValueError, match="device"):
+            grid_step_planes(lab.to("meta"), cond.to("meta"))
+
     def test_gmm_counts_no_launch_and_checks_contract(self):
         x, w, sizes = (torch.as_tensor(a)
                        for a in gmm_fixture(0, 3, 10, 8, 6, masked=False))
@@ -606,6 +637,60 @@ def grid_fixture(seed, h, w, p_cond=0.6, lo=0, hi=50):
     if lo == 0:
         lab = lab * cond
     return lab, cond
+
+
+def grid_stack(seed, planes, h, w, **kw):
+    """``planes`` different ``grid_fixture`` planes, stacked."""
+    pairs = [grid_fixture(seed * 101 + p, h, w, **kw) for p in range(planes)]
+    return (np.stack([lab for lab, _ in pairs]),
+            np.stack([cond for _, cond in pairs]))
+
+
+@pytest.mark.parametrize("planes", [1, 4])
+@pytest.mark.parametrize("h,w", [(1, 7), (7, 1), (33, 16), (40, 32),
+                                 (80, 128)])
+def test_grid_step_planes_matches_jax_per_plane(planes, h, w):
+    """A stack of different planes stepped at once equals the Pallas kernel
+    (interpret mode) on each plane alone: nothing crosses a plane edge."""
+    lab, cond = grid_stack(h * w + planes, planes, h, w, hi=99)
+    assert planes == 1 or not np.array_equal(lab[0], lab[1])
+    out = grid_step_planes(torch.as_tensor(lab), torch.as_tensor(cond))
+    assert out.dtype == torch.int32 and out.shape == (planes, h, w)
+    for p in range(planes):
+        ref = np.asarray(jax_grid_step(jnp.asarray(lab[p]),
+                                       jnp.asarray(cond[p]), interpret=True))
+        assert np.array_equal(out[p].numpy(), ref), p
+
+
+@pytest.mark.parametrize("planes,h,w", [(4, 1, 7), (4, 7, 1), (3, 7, 5),
+                                        (4, 33, 16), (2, 40, 30)])
+def test_grid_step_planes_ref_any_int32_matches_jax_ref(planes, h, w):
+    """Negative labels and cond values outside {0, 1}, plane by plane."""
+    rng = np.random.default_rng(planes * 1000 + h * w)
+    lab = rng.integers(-50, 100, (planes, h, w)).astype(np.int32)
+    cond = rng.integers(-3, 4, (planes, h, w)).astype(np.int32)
+    out = grid_step_planes_ref(torch.as_tensor(lab), torch.as_tensor(cond))
+    for p in range(planes):
+        ref = jax_grid_step_ref(jnp.asarray(lab[p]), jnp.asarray(cond[p]))
+        assert np.array_equal(out[p].numpy(), np.asarray(ref)), p
+
+
+@pytest.mark.parametrize("w,offset,path", [(128, 0, "vec4"), (32, 0, "vec4"),
+                                           (4, 0, "vec4"), (30, 0, "scalar"),
+                                           (7, 0, "scalar"), (1, 0, "scalar"),
+                                           (128, 1, "scalar"),
+                                           (32, 2, "scalar"),
+                                           (32, 4, "vec4")])
+def test_grid_step_kernel_path(w, offset, path):
+    """The 16-byte body needs W a multiple of 4 and 16-byte-aligned inputs;
+    a stack viewed ``offset`` words into a buffer is aligned only when
+    ``offset`` is a multiple of 4."""
+    buf = torch.zeros(4 * 3 * w + offset, dtype=torch.int32)
+    view = buf[offset:].view(4, 3, w)
+    assert view.is_contiguous()
+    aligned = view.data_ptr() % 16 == 0
+    assert aligned == (offset % 4 == 0)
+    assert grid_pkg.kernel_path(w, aligned=aligned) == path
 
 
 @pytest.mark.parametrize("h,w,band", [(16, 32, 8), (40, 32, 8), (33, 16, 8),

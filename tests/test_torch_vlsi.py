@@ -123,3 +123,40 @@ def test_cli_refuses_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
         launch_vlsi.main(["--layout", "nand", "--agents", "8"])
+
+
+def test_done_fn_one_stacked_step_equals_per_plane_form(monkeypatch):
+    """The observer steps its four label planes as one stack
+    (``grid_step_planes``); with the step taken plane by plane instead,
+    ``done_fn`` gives the same answer on a NAND grid mid-run, on the
+    converged one, and on the converged one with one label lowered (labels
+    all set, but no fixpoint). The stacked step equals the per-plane steps
+    on each."""
+    from repro_torch.kernels.grid_step import grid_step, grid_step_planes
+
+    def per_plane(labs, conds):
+        return torch.stack([grid_step(lab, cond)
+                            for lab, cond in zip(labs, conds)])
+
+    lay = layout.nand_layout()
+    early, _, _, _ = extractor.run_extraction(lay, N_AGENTS, seed=1,
+                                              max_steps=60, device="cpu")
+    done, steps, _, _ = extractor.run_extraction(lay, N_AGENTS, seed=1,
+                                                 device="cpu")
+    assert steps == 267
+    lowered = done.copy()
+    m1 = extractor.LAB0 + extractor.M1
+    r, c = np.argwhere(lowered[m1] > 1)[0]
+    lowered[m1, r, c] = 1
+    grids = [torch.as_tensor(g) for g in (early, done, lowered)]
+    stacked = [extractor.done_fn(g) for g in grids]
+    assert stacked == [False, True, False]
+    with monkeypatch.context() as m:
+        m.setattr(extractor, "grid_step_planes", per_plane)
+        assert [extractor.done_fn(g) for g in grids] == stacked
+    for g in grids:
+        labs = g[extractor.LAB0:extractor.LAB0 + 4]
+        conds = (g[[extractor.M1, extractor.M2, extractor.POLY,
+                    extractor.DIFF]] > 0).to(torch.int32)
+        assert torch.equal(grid_step_planes(labs, conds),
+                           per_plane(labs, conds))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The kernels of two trees of the port (paged decode, paged verify, flash
-attention, the grouped matmul), side by side on one card, through
-``chip_smoke.py``'s own checks and timings.
+attention, the grouped matmul, the grid step), side by side on one card,
+through ``chip_smoke.py``'s own checks and timings.
 
     python3 tools/kernel_ab.py --roots OLD,NEW [--seed 0]
     python3 tools/kernel_ab.py --one ROOT [--seed 0]
@@ -11,13 +11,15 @@ parent commit: ``git archive <commit> | tar -x -C build/parent``). With
 ``--roots`` the trees run in turns, OLD, NEW, NEW, OLD; each run is its own
 process that imports the port from ``<root>/src`` (and builds its kernels
 under ``<root>/build``) and this checkout's ``chip_smoke.py``, and calls its
-``check_paged``, ``check_verify``, ``check_flash``, ``check_gmm`` and the
-matching ``time_*`` on inputs drawn from ``--seed``. A failed check is
-recorded in the run's ``failed`` list instead of ending it, so a tree that
-breaks a check (an older body, a planted fault) still reports every
-reading. A tree whose wrappers predate the per-body counts has each launch
-counted under one body, ``"any"``. Prints one JSON line per run, then the
-card's name and power limit.
+``check_paged``, ``check_verify``, ``check_flash``, ``check_gmm``,
+``check_grid_step`` and the matching ``time_*`` on inputs drawn from
+``--seed``. A failed check is recorded in the run's ``failed`` list instead
+of ending it, so a tree that breaks a check (an older body, a planted
+fault) still reports every reading. A tree whose wrappers predate the
+per-body counts has each launch counted under one body, ``"any"``; a tree
+without ``grid_step_planes`` (one launch a plane) has its stacks neither
+checked nor timed. Prints one JSON line per run, then the card's name and
+power limit.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMED = ("ms", "library_ms", "device_ms", "library_device_ms", "bound_ms",
          "max_abs_err")
-PAGED_TIMED = ("ms", "device_ms", "bound_ms", "max_abs_err")
+# the kernels without a library call (paged decode and verify, the grid step)
+NO_LIB_TIMED = ("ms", "device_ms", "bound_ms", "max_abs_err")
 
 
 class _AllLaunches:
@@ -50,10 +53,12 @@ def one(root: str, seed: int) -> dict:
     import chip_smoke as cs
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as flash_pkg
+    from repro_torch.kernels import grid_step as grid_pkg
     from repro_torch.kernels import moe_gmm as gmm_pkg
     from repro_torch.kernels import paged_attention as paged_pkg
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+    from repro_torch.kernels.grid_step import grid_step, grid_step_ref
     from repro_torch.kernels.moe_gmm import gmm_ref, moe_gmm
     from repro_torch.kernels.paged_attention import (
         paged_attention, paged_attention_ref, paged_attention_verify,
@@ -65,8 +70,9 @@ def one(root: str, seed: int) -> dict:
     for pkg, wrappers in ((flash_pkg, [flash_attention]),
                           (gmm_pkg, [moe_gmm]),
                           (paged_pkg, [paged_attention,
-                                       paged_attention_verify])):
-        paths[pkg] = getattr(pkg, "kernel_path", lambda *a: "any")
+                                       paged_attention_verify]),
+                          (grid_pkg, [grid_step])):
+        paths[pkg] = getattr(pkg, "kernel_path", lambda *a, **k: "any")
         for wrapper in wrappers:
             if not hasattr(wrapper, "launches_by_path"):
                 wrapper.launches_by_path = _AllLaunches(wrapper)
@@ -80,6 +86,9 @@ def one(root: str, seed: int) -> dict:
     flash = cs.check_flash(torch, gen, flash_attention, attention_ref,
                            paths[flash_pkg])
     gmm = cs.check_gmm(torch, gen, moe_gmm, gmm_ref, paths[gmm_pkg])
+    planes = getattr(grid_pkg, "grid_step_planes", None)
+    grid = cs.check_grid_step(torch, gen, grid_step, planes, grid_step_ref,
+                              paths[grid_pkg])
     pt = cs.time_paged(torch, gen, paged_attention, paged_attention_ref)
     vt = cs.time_verify(torch, gen, paged_attention_verify,
                         paged_attention_verify_ref,
@@ -87,15 +96,18 @@ def one(root: str, seed: int) -> dict:
                             traces, configs.get_config("smollm-360m"), seed))
     ft = cs.time_flash(torch, gen, flash_attention, attention_ref)
     gt = cs.time_gmm(torch, gen, moe_gmm, gmm_ref)
+    grid_t = cs.time_grid_step(torch, gen, grid_step, planes, grid_step_ref)
     return {"root": root, "failed": failed, "paged_checks": paged,
             "verify_checks": verify, "flash_checks": flash,
-            "gmm_checks": gmm,
-            "paged_decode": {k: pt[k] for k in PAGED_TIMED},
-            "paged_verify": {k: vt[k] for k in PAGED_TIMED},
+            "gmm_checks": gmm, "grid_checks": grid,
+            "paged_decode": {k: pt[k] for k in NO_LIB_TIMED},
+            "paged_verify": {k: vt[k] for k in NO_LIB_TIMED},
             "flash_1000": {k: ft[k] for k in TIMED},
             "flash_383": {k: ft["s383"][k] for k in TIMED},
             "gmm_decode": {k: gt[k] for k in TIMED},
-            "gmm_prefill": {k: gt["prefill"][k] for k in TIMED}}
+            "gmm_prefill": {k: gt["prefill"][k] for k in TIMED},
+            "grid_step": {shape: {k: t[k] for k in NO_LIB_TIMED}
+                          for shape, t in grid_t.items()}}
 
 
 def run(root: str, seed: int) -> str:
