@@ -1,10 +1,8 @@
 """Architecture registry: ``get_config(arch_id)`` + input specs per (arch, shape).
 
-The same ten architectures as the JAX package's registry. ``input_specs``
-returns plain ``InputSpec(shape, dtype)`` records instead of JAX shape
-structs. The ``dense`` and ``moe`` families run in this port so far; the
-model constructors raise ``NotImplementedError`` naming the slice that brings
-the others (see :func:`require_supported`).
+The same ten architectures as the JAX package's registry, every family of
+which the port builds and serves. ``input_specs`` returns plain
+``InputSpec(shape, dtype)`` records instead of JAX shape structs.
 """
 from __future__ import annotations
 
@@ -21,10 +19,6 @@ ARCHS = {
               granite_moe_3b, kimi_k2, recurrentgemma_9b, mamba2_130m,
               musicgen_medium)
 }
-
-# the port slice that brings each non-dense family (ROADMAP queue 1)
-FAMILY_SLICE = {"ssm": 5, "hybrid": 5, "vlm": 5, "audio": 5}
-SUPPORTED_FAMILIES = ("dense", "moe")
 
 
 class InputSpec(NamedTuple):
@@ -43,15 +37,6 @@ def get_shape(shape: str) -> ShapeConfig:
     if shape not in SHAPES:
         raise KeyError(f"unknown shape {shape!r}; available: {sorted(SHAPES)}")
     return SHAPES[shape]
-
-
-def require_supported(cfg: ModelConfig) -> None:
-    """Raise unless this port can build ``cfg``'s model family yet."""
-    if cfg.family not in SUPPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is ported in slice "
-            f"{FAMILY_SLICE.get(cfg.family, '?')}; only "
-            f"{', '.join(SUPPORTED_FAMILIES)} run so far")
 
 
 def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:

@@ -26,6 +26,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
+# The head dims of the bf16 tensor-core bodies of paged_attention.cu and
+# flash_attention.cu (csrc/tensor_core.cuh:mma_dim makes the same choice)
+MMA_HEAD_DIMS = (16, 32, 64, 128)
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)   # an int the entry point writes back

@@ -33,7 +33,8 @@
 // * fp32 ("cuda_core"): the first version on CUDA cores in fp32, exact to
 //   summation order against the plain version (tensor cores would need
 //   TF32, three decimal digits). bf16 whose pointers are not 16-byte
-//   aligned (cp.async's unit) takes it too. Two threads per q row.
+//   aligned (cp.async's unit) takes it too, and bf16 at the head dims 112
+//   and 256 (tensor_core.cuh:mma_dim). Two threads per q row.
 //
 // Layouts: q (B, H, S, D); k, v (B, Hkv, S, D); out (B, H, S, D).
 #include <cuda_runtime.h>
@@ -450,7 +451,9 @@ template <typename T, int D>
 int launch_path(int path, const void* q, const void* k, const void* v,
                 void* out, int b, int h, int hkv, int s, int causal,
                 cudaStream_t st) {
-  if (path == 1) return launch_mma<D>(q, k, v, out, b, h, hkv, s, causal, st);
+  if constexpr (mma_dim(D)) {
+    if (path == 1) return launch_mma<D>(q, k, v, out, b, h, hkv, s, causal, st);
+  }
   return launch_cuda_core<T, D>(q, k, v, out, b, h, hkv, s, causal, st);
 }
 
@@ -461,22 +464,26 @@ int launch_d(int path, const void* q, const void* k, const void* v,
   if (d == 16) return launch_path<T, 16>(path, q, k, v, out, b, h, hkv, s, causal, st);
   if (d == 32) return launch_path<T, 32>(path, q, k, v, out, b, h, hkv, s, causal, st);
   if (d == 64) return launch_path<T, 64>(path, q, k, v, out, b, h, hkv, s, causal, st);
+  if (d == 112) return launch_path<T, 112>(path, q, k, v, out, b, h, hkv, s, causal, st);
   if (d == 128) return launch_path<T, 128>(path, q, k, v, out, b, h, hkv, s, causal, st);
+  if (d == 256) return launch_path<T, 256>(path, q, k, v, out, b, h, hkv, s, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d in {16, 32, 64, 128}. Writes the body
-// it takes to *path: 1 ("mma") for bf16 with 16-byte-aligned pointers (what
-// cp.async needs), else 0 ("cuda_core"). Returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16; d in {16, 32, 64, 112, 128, 256}. Writes
+// the body it takes to *path: 1 ("mma") for bf16 with 16-byte-aligned
+// pointers (what cp.async needs) at d in {16, 32, 64, 128}, else 0
+// ("cuda_core"). Returns cudaGetLastError().
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int b, int h,
                                      int hkv, int s, int d, int causal,
                                      int dtype, void* stream, int* path) {
   using repro_tc::aligned16;
+  using repro_tc::mma_dim;
   *path = dtype == 1 && aligned16(q) && aligned16(k) && aligned16(v) &&
-          aligned16(out);
+          aligned16(out) && mma_dim(d);
   if (b == 0 || s == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_d<float>(*path, q, k, v, out, b, h, hkv, s, d, causal, st);

@@ -62,12 +62,16 @@
 //     parts, hi + lo, so it keeps ~16 bits, close to the fp32 P of the TPU
 //     kernels (rounding P to bf16 once, as flash does, moved the MoE spec
 //     run's verify rows off its decode rows).
-//   - "cuda_core" (fp32, and bf16 that is not 16-byte aligned): eight warps,
-//     8 tokens of a tile each (four warps of 16 spent ~2.4 us a tile on
-//     their serial instruction chains); the 8 rows of a row block in
-//     registers (rows past the kv head's skipped); a warp pass covers 32 / CPR tokens, each lane one 16-byte
-//     chunk of a K row (CPR chunks a row), dot products reduced by
-//     shuffles, one softmax update per tile (or four passes); P stays fp32.
+//   - "cuda_core" (fp32, bf16 that is not 16-byte aligned, and bf16 at the
+//     head dims 112 and 256, which the mma body does not take): eight
+//     warps, 8 tokens of a tile each (four warps of 16 spent ~2.4 us a tile
+//     on their serial instruction chains); the 8 rows of a row block in
+//     registers (rows past the kv head's skipped); a K row of CPR 16-byte
+//     chunks lies over the next power of two of CPR lanes (past 32 chunks,
+//     fp32 at D = 256, each lane takes CPR / 32), so a warp pass covers
+//     32 / lanes tokens; dot products reduced by shuffles, one softmax
+//     update per tile (or four passes); P stays fp32. fp32 at D = 256 takes
+//     32-token tiles so that three ring stages fit in shared memory.
 // What is left: a CTA's time is a chain of global latencies (lengths, then
 // table entries, then K/V, then the partial state) plus the merge launch;
 // wgmma / TMA would take the per-warp ldmatrix traffic off the mma body,
@@ -101,14 +105,53 @@ constexpr int kStages = 3;
 constexpr int kMmaRows = 16;                 // rows of one m16 tile
 constexpr int kCcRows = 8;                   // rows of a CUDA-core row block
 
-// Warps of the CUDA-core body: 8, each taking 8 tokens of a tile (so each
-// warp's serial chain of instructions is short), or fewer where one warp
-// pass already covers more tokens (bf16 at D = 16: 16 tokens a pass).
+// How the CUDA-core body lays a token's row of CPR 16-byte chunks over a
+// warp: the next power of two of CPR lanes take one chunk each (lanes past
+// CPR idle, as for D = 112), or, past 32 chunks (fp32 at D = 256), all 32
+// lanes take CPR / 32 chunks each; 32 / lanes tokens go through a warp pass.
+template <int CPR>
+__host__ __device__ constexpr int cc_lanes() {
+  return CPR > 16 ? 32 : CPR > 8 ? 16 : CPR > 4 ? 8 : CPR > 2 ? 4 : CPR > 1 ? 2 : 1;
+}
+template <int CPR>
+__host__ __device__ constexpr int cc_chunks() {
+  return CPR > 32 ? CPR / 32 : 1;
+}
+template <typename T, int D>
+__host__ __device__ constexpr int cc_cpr() {
+  return D * (int)sizeof(T) / 16;
+}
+template <typename T, int D>
+__host__ __device__ constexpr int cc_tpp() {
+  return 32 / cc_lanes<cc_cpr<T, D>()>();
+}
+// Tokens of a CUDA-core ring stage: 64, or 32 where a row is over 512 bytes
+// (fp32 at D = 256), so that three stages of K and V fit in shared memory.
+template <typename T, int D>
+__host__ __device__ constexpr int cc_tile() {
+  return D * (int)sizeof(T) > 512 ? kTile / 2 : kTile;
+}
+
+// Warps of the CUDA-core body: 8, each taking tile / 8 tokens of a tile (so
+// each warp's serial chain of instructions is short), or fewer where one
+// warp pass already covers more tokens (bf16 at D = 16: 16 tokens a pass).
 template <typename T, int D>
 __host__ __device__ constexpr int cc_warps() {
-  return kTile / (32 / (D * (int)sizeof(T) / 16)) < 8
-             ? kTile / (32 / (D * (int)sizeof(T) / 16))
+  return cc_tile<T, D>() / cc_tpp<T, D>() < 8
+             ? cc_tile<T, D>() / cc_tpp<T, D>()
              : 8;
+}
+
+// Index, in 16-byte units, of chunk `ch` of ring row `row`: the XOR swizzle
+// of tensor_core.cuh where it keeps a chunk in its row (CPR a multiple of 8,
+// or 1, 2, 4), else row-major (CPR = 14, 28 at D = 112).
+template <int CPR>
+__device__ __forceinline__ int ring_at(int row, int ch) {
+  if constexpr (CPR % 8 == 0 || 8 % CPR == 0) {
+    return swz<CPR>(row, ch);
+  } else {
+    return row * CPR + ch;
+  }
 }
 
 struct Params {
@@ -230,9 +273,9 @@ __device__ __forceinline__ void write_empty(const Params& p, const Work& w,
   }
 }
 
-// K and V rows of tile j (tokens s0 + 64 j ..) into one ring stage: 16-byte
+// K and V rows of tile j (tokens s0 + TILE j ..) into one ring stage: 16-byte
 // cp.async copies (or element copies), zero-filled past the CTA's tokens.
-template <typename T, int D, int NT>
+template <typename T, int D, int NT, int TILE>
 __device__ __forceinline__ void load_tile(const Params& p, const Work& w,
                                           const int* pages_s, int j,
                                           uint4* ks, uint4* vs) {
@@ -240,16 +283,16 @@ __device__ __forceinline__ void load_tile(const Params& p, const Work& w,
   constexpr int EPC = 16 / (int)sizeof(T);
   const T* kp = static_cast<const T*>(p.kp);
   const T* vp = static_cast<const T*>(p.vp);
-  for (int i = threadIdx.x; i < kTile * CPR; i += NT) {
+  for (int i = threadIdx.x; i < TILE * CPR; i += NT) {
     const int row = i / CPR, ch = i % CPR;
-    const int rel = j * kTile + row;           // token - s0
+    const int rel = j * TILE + row;            // token - s0
     const bool ok = rel < w.ntok;
     long long src = 0;
     if (ok) {
       const long long pg = pages_s[rel / p.page];
       src = ((pg * p.page + rel % p.page) * p.hkv + w.h) * D + ch * EPC;
     }
-    const int dst = swz<CPR>(row, ch);
+    const int dst = ring_at<CPR>(row, ch);
     if (p.vec) {
       cp_async16(smem_u32(ks + dst), kp + src, ok ? 16 : 0);
       cp_async16(smem_u32(vs + dst), vp + src, ok ? 16 : 0);
@@ -307,9 +350,9 @@ __device__ __forceinline__ void combine_warps(const Params& p, const Work& w,
 
 // Shared memory of one CTA: the ring, then (mma) the Q tile, then the
 // split's table entries. The warps' states reuse the ring at the end.
-template <typename T, int D>
+template <typename T, int D, int TILE>
 __host__ __device__ constexpr size_t ring_bytes() {
-  return (size_t)kStages * 2 * kTile * D * sizeof(T);
+  return (size_t)kStages * 2 * TILE * D * sizeof(T);
 }
 
 // ---------------------------------------------------------------------------
@@ -318,34 +361,40 @@ __host__ __device__ constexpr size_t ring_bytes() {
 template <typename T, int D>
 __device__ __forceinline__ void cuda_core_body(const Params& p) {
   constexpr int RB = kCcRows;
-  constexpr int CPR = D * (int)sizeof(T) / 16;   // 16-byte chunks a row
+  constexpr int CPR = cc_cpr<T, D>();            // 16-byte chunks a row
   constexpr int EPC = 16 / (int)sizeof(T);       // elements a chunk
-  constexpr int TPP = 32 / CPR;                  // tokens a warp pass
+  constexpr int LPR = cc_lanes<CPR>();           // lanes of one token row
+  constexpr int CPL = cc_chunks<CPR>();          // chunks a lane holds
+  constexpr int EPL = CPL * EPC;                 // elements a lane holds
+  constexpr int TPP = 32 / LPR;                  // tokens a warp pass
+  constexpr int TILE = cc_tile<T, D>();
   constexpr int NW = cc_warps<T, D>();
   constexpr int NT = 32 * NW;
-  constexpr int WT = kTile / NW;                 // tokens of a stage per warp
+  constexpr int WT = TILE / NW;                  // tokens of a stage per warp
   constexpr int PASSES = WT / TPP;
   // passes one softmax update covers (PB x RB scores in registers)
   constexpr int PB = PASSES < 4 ? PASSES : 4;
-  constexpr int KVT = kTile * CPR;               // chunks of a K or V stage
+  constexpr int KVT = TILE * CPR;                // chunks of a K or V stage
+  static_assert(CPR <= 32 || CPR % 32 == 0, "row of chunks over a warp");
   const Work w = work_of(p, RB);
   if (p.nsplit > 1 && w.ntok == 0) {             // no live position here
     write_empty<NT>(p, w, RB, D);
     return;
   }
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tsub = lane / CPR, ch = lane % CPR;
+  const int tsub = lane / LPR, ch0 = (lane % LPR) * CPL;
+  const bool holds = ch0 < CPR;                  // lanes past the row idle
   const int nr = min(RB, p.rows - w.rb * RB);    // live rows of the block
 
   extern __shared__ uint4 smem4[];
   uint4* ring = smem4;
   int* pages_s = reinterpret_cast<int*>(reinterpret_cast<char*>(smem4) +
-                                        ring_bytes<T, D>());
+                                        ring_bytes<T, D, TILE>());
   stage_table<NT>(p, w, pages_s);
 
-  // this lane's chunk of every row, pre-scaled into the log2 domain
+  // this lane's chunks of every row, pre-scaled into the log2 domain
   const T* q = static_cast<const T*>(p.q);
-  float qr[RB][EPC], acc[RB][EPC], m[RB], l[RB];
+  float qr[RB][EPL], acc[RB][EPL], m[RB], l[RB];
   int lim[RB];
 #pragma unroll
   for (int r = 0; r < RB; ++r) {
@@ -354,9 +403,9 @@ __device__ __forceinline__ void cuda_core_body(const Params& p) {
     m[r] = kNegInf;
     l[r] = 0.f;
 #pragma unroll
-    for (int e = 0; e < EPC; ++e) {
-      qr[r][e] = gr < p.rows
-                     ? to_f(q[row_off(p, w.b, w.h, gr, D) + ch * EPC + e]) *
+    for (int e = 0; e < EPL; ++e) {
+      qr[r][e] = gr < p.rows && holds
+                     ? to_f(q[row_off(p, w.b, w.h, gr, D) + ch0 * EPC + e]) *
                            p.scale_log2
                      : 0.f;
       acc[r][e] = 0.f;
@@ -364,12 +413,12 @@ __device__ __forceinline__ void cuda_core_body(const Params& p) {
   }
   __syncthreads();                               // table entries staged
 
-  const int ntiles = (w.ntok + kTile - 1) / kTile;
+  const int ntiles = (w.ntok + TILE - 1) / TILE;
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
-    if (st < ntiles) load_tile<T, D, NT>(p, w, pages_s, st,
-                                         ring + st * 2 * KVT,
-                                         ring + st * 2 * KVT + KVT);
+    if (st < ntiles) load_tile<T, D, NT, TILE>(p, w, pages_s, st,
+                                               ring + st * 2 * KVT,
+                                               ring + st * 2 * KVT + KVT);
     cp_async_commit();
   }
   for (int j = 0; j < ntiles; ++j) {
@@ -379,11 +428,11 @@ __device__ __forceinline__ void cuda_core_body(const Params& p) {
       const int jn = j + kStages - 1;
       if (jn < ntiles) {
         uint4* st = ring + (jn % kStages) * 2 * KVT;
-        load_tile<T, D, NT>(p, w, pages_s, jn, st, st + KVT);
+        load_tile<T, D, NT, TILE>(p, w, pages_s, jn, st, st + KVT);
       }
       cp_async_commit();
     }
-    const int rel0 = j * kTile + warp * WT;    // this warp's tokens
+    const int rel0 = j * TILE + warp * WT;     // this warp's tokens
     if (rel0 >= w.ntok) continue;              // warp-uniform
     const uint4* kt = ring + (j % kStages) * 2 * KVT;
     const uint4* vt = kt + KVT;
@@ -395,18 +444,26 @@ __device__ __forceinline__ void cuda_core_body(const Params& p) {
       for (int ps = 0; ps < PB; ++ps) {
         const int trow = warp * WT + (pb + ps) * TPP + tsub;
         const bool any = rel0 + (pb + ps) * TPP < w.ntok;   // warp-uniform
-        float kf[EPC];
-        if (any) unpack(kt[swz<CPR>(trow, ch)], kf);
-        const int kpos = w.s0 + j * kTile + trow;
+        float kf[EPL];
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          float f[EPC];
+#pragma unroll
+          for (int e = 0; e < EPC; ++e) f[e] = 0.f;
+          if (any && holds) unpack(kt[ring_at<CPR>(trow, ch0 + c)], f);
+#pragma unroll
+          for (int e = 0; e < EPC; ++e) kf[c * EPC + e] = f[e];
+        }
+        const int kpos = w.s0 + j * TILE + trow;
 #pragma unroll
         for (int r = 0; r < RB; ++r) {
           sc[ps][r] = kNegInf;
           if (!any || r >= nr) continue;
           float s = 0.f;
 #pragma unroll
-          for (int e = 0; e < EPC; ++e) s = fmaf(qr[r][e], kf[e], s);
+          for (int e = 0; e < EPL; ++e) s = fmaf(qr[r][e], kf[e], s);
 #pragma unroll
-          for (int o = CPR / 2; o >= 1; o >>= 1)
+          for (int o = LPR / 2; o >= 1; o >>= 1)
             s += __shfl_xor_sync(0xffffffffu, s, o);
           if (kpos <= lim[r]) sc[ps][r] = s;
         }
@@ -418,28 +475,36 @@ __device__ __forceinline__ void cuda_core_body(const Params& p) {
 #pragma unroll
         for (int ps = 1; ps < PB; ++ps) mx = fmaxf(mx, sc[ps][r]);
 #pragma unroll
-        for (int o = CPR; o < 32; o <<= 1)
+        for (int o = LPR; o < 32; o <<= 1)
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
         const float mn = fmaxf(m[r], mx);
         const float corr = exp2f(m[r] - mn);
         m[r] = mn;
         l[r] *= corr;
 #pragma unroll
-        for (int e = 0; e < EPC; ++e) acc[r][e] *= corr;
+        for (int e = 0; e < EPL; ++e) acc[r][e] *= corr;
       }
 #pragma unroll
       for (int ps = 0; ps < PB; ++ps) {
         if (rel0 + (pb + ps) * TPP >= w.ntok) break;       // warp-uniform
         const int trow = warp * WT + (pb + ps) * TPP + tsub;
-        float vf[EPC];
-        unpack(vt[swz<CPR>(trow, ch)], vf);
+        float vf[EPL];
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          float f[EPC];
+#pragma unroll
+          for (int e = 0; e < EPC; ++e) f[e] = 0.f;
+          if (holds) unpack(vt[ring_at<CPR>(trow, ch0 + c)], f);
+#pragma unroll
+          for (int e = 0; e < EPC; ++e) vf[c * EPC + e] = f[e];
+        }
 #pragma unroll
         for (int r = 0; r < RB; ++r) {
           if (r >= nr) continue;
           const float pr = sc[ps][r] == kNegInf ? 0.f : exp2f(sc[ps][r] - m[r]);
           l[r] += pr;
 #pragma unroll
-          for (int e = 0; e < EPC; ++e) acc[r][e] = fmaf(pr, vf[e], acc[r][e]);
+          for (int e = 0; e < EPL; ++e) acc[r][e] = fmaf(pr, vf[e], acc[r][e]);
         }
       }
     }
@@ -449,10 +514,10 @@ __device__ __forceinline__ void cuda_core_body(const Params& p) {
 #pragma unroll
   for (int r = 0; r < RB; ++r) {
 #pragma unroll
-    for (int o = CPR; o < 32; o <<= 1) {
+    for (int o = LPR; o < 32; o <<= 1) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
 #pragma unroll
-      for (int e = 0; e < EPC; ++e)
+      for (int e = 0; e < EPL; ++e)
         acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], o);
     }
   }
@@ -461,12 +526,12 @@ __device__ __forceinline__ void cuda_core_body(const Params& p) {
   float* st_m = reinterpret_cast<float*>(ring);
   float* st_l = st_m + NW * RB;
   float* st_o = st_l + NW * RB;
-  if (tsub == 0) {
+  if (tsub == 0 && holds) {
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
 #pragma unroll
-      for (int e = 0; e < EPC; ++e)
-        st_o[(warp * RB + r) * D + ch * EPC + e] = acc[r][e];
+      for (int e = 0; e < EPL; ++e)
+        st_o[(warp * RB + r) * D + ch0 * EPC + e] = acc[r][e];
       if (lane == 0) {
         st_m[warp * RB + r] = m[r];
         st_l[warp * RB + r] = l[r];
@@ -517,7 +582,7 @@ __device__ __forceinline__ void mma_body(const Params& p) {
   const int ntiles = (w.ntok + kTile - 1) / kTile;
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
-    if (st < ntiles) load_tile<bf, D, kThreads>(p, w, pages_s, st,
+    if (st < ntiles) load_tile<bf, D, kThreads, kTile>(p, w, pages_s, st,
                                                 ring + st * 2 * KVT,
                                                 ring + st * 2 * KVT + KVT);
     cp_async_commit();                                 // (Q rides in group 0)
@@ -536,7 +601,7 @@ __device__ __forceinline__ void mma_body(const Params& p) {
       const int jn = j + kStages - 1;
       if (jn < ntiles) {
         uint4* st = ring + (jn % kStages) * 2 * KVT;
-        load_tile<bf, D, kThreads>(p, w, pages_s, jn, st, st + KVT);
+        load_tile<bf, D, kThreads, kTile>(p, w, pages_s, jn, st, st + KVT);
       }
       cp_async_commit();
     }
@@ -760,19 +825,22 @@ template <typename T, int D>
 int launch_d(int path, bool verify, Params p, cudaStream_t st) {
   const size_t table = (size_t)p.pps * sizeof(int);
   constexpr int kCcThreads = 32 * cc_warps<T, D>();
-  int err;
-  if (path == 1) {
-    p.nrb = (p.rows + kMmaRows - 1) / kMmaRows;
-    const size_t smem =
-        ring_bytes<__nv_bfloat16, D>() + kMmaRows * D * 2 + table;
-    err = launch_split(
-        verify ? paged_verify_mma_kernel<D> : paged_decode_mma_kernel<D>, p,
-        kThreads, smem, st);
-  } else {
+  int err = -1;
+  if constexpr (mma_dim(D)) {
+    if (path == 1) {
+      p.nrb = (p.rows + kMmaRows - 1) / kMmaRows;
+      const size_t smem = ring_bytes<__nv_bfloat16, D, kTile>() +
+                          kMmaRows * D * 2 + table;
+      err = launch_split(
+          verify ? paged_verify_mma_kernel<D> : paged_decode_mma_kernel<D>, p,
+          kThreads, smem, st);
+    }
+  }
+  if (path != 1) {
     p.nrb = (p.rows + kCcRows - 1) / kCcRows;
     err = launch_split(
         verify ? paged_verify_kernel<T, D> : paged_decode_kernel<T, D>, p,
-        kCcThreads, ring_bytes<T, D>() + table, st);
+        kCcThreads, ring_bytes<T, D, cc_tile<T, D>()>() + table, st);
   }
   if (err || p.nsplit == 1) return err;
   const long long grid = (long long)p.batch * p.hkv *
@@ -792,7 +860,9 @@ int launch_t(int path, bool verify, const Params& p, int d, cudaStream_t st) {
   if (d == 16) return launch_d<T, 16>(path, verify, p, st);
   if (d == 32) return launch_d<T, 32>(path, verify, p, st);
   if (d == 64) return launch_d<T, 64>(path, verify, p, st);
+  if (d == 112) return launch_d<T, 112>(path, verify, p, st);
   if (d == 128) return launch_d<T, 128>(path, verify, p, st);
+  if (d == 256) return launch_d<T, 256>(path, verify, p, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -821,7 +891,7 @@ int dispatch(const void* q, const void* kp, const void* vp, const void* table,
   p.nrb = 1;
   p.vec = aligned16(kp) && aligned16(vp);
   p.scale_log2 = 1.4426950408889634f / sqrtf((float)d);   // log2(e)/sqrt(D)
-  *path = dtype == 1 && p.vec && aligned16(q) && aligned16(out);
+  *path = dtype == 1 && p.vec && aligned16(q) && aligned16(out) && mma_dim(d);
   if (b == 0 || p.rows == 0) return 0;
   if (nsplit < 1 || pps < 1 || page < 1 || (nsplit > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -832,12 +902,12 @@ int dispatch(const void* q, const void* kp, const void* vp, const void* table,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d in {16, 32, 64, 128}. nsplit and
-// pages_per_split come from ops.py:split_rule; `partials` holds B * Hkv *
-// nsplit * R * (D + 2) floats (R = G, or Sq * G) when nsplit > 1, else may
-// be null. Writes the body it takes to *path: 1 ("mma") for bf16 with
-// 16-byte-aligned pointers, else 0 ("cuda_core"). Returns
-// cudaGetLastError() after its launches.
+// dtype: 0 = float32, 1 = bfloat16; d in {16, 32, 64, 112, 128, 256}.
+// nsplit and pages_per_split come from ops.py:split_rule; `partials` holds
+// B * Hkv * nsplit * R * (D + 2) floats (R = G, or Sq * G) when nsplit > 1,
+// else may be null. Writes the body it takes to *path: 1 ("mma") for bf16
+// with 16-byte-aligned pointers at d in {16, 32, 64, 128}, else 0
+// ("cuda_core"). Returns cudaGetLastError() after its launches.
 extern "C" int repro_paged_attention(const void* q, const void* k_pages,
                                      const void* v_pages, const void* table,
                                      const void* lengths, void* out,

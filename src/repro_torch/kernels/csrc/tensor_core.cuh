@@ -88,4 +88,13 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// The head dims of the tensor-core bodies of paged_attention.cu and
+// flash_attention.cu (kernels/_build.py:MMA_HEAD_DIMS). 112 and 256 take the
+// CUDA-core bodies in bf16 too: a 256-wide tile pair of K / V slots would
+// not fit the ring in shared memory, and 112 / 8 chunks a row do not fit the
+// swizzle.
+__host__ __device__ constexpr bool mma_dim(int d) {
+  return d == 16 || d == 32 || d == 64 || d == 128;
+}
+
 }  // namespace repro_tc

@@ -19,17 +19,20 @@ from .. import _build
 from .ref import attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 # the bodies of csrc/flash_attention.cu, by the code its entry point reports
 PATHS = ("cuda_core", "mma")
 
 
-def kernel_path(dtype: torch.dtype, aligned: bool = True) -> str:
+def kernel_path(dtype: torch.dtype, head_dim: int,
+                aligned: bool = True) -> str:
     """The body a CUDA call with inputs of ``dtype`` takes: ``"mma"`` (bf16
-    on the tensor cores) or ``"cuda_core"`` (fp32, and bf16 whose pointers
-    are not 16-byte aligned, which cp.async needs). Any head dim of
-    ``HEAD_DIMS``; the C entry point makes the same choice."""
-    return "mma" if dtype == torch.bfloat16 and aligned else "cuda_core"
+    on the tensor cores) at a head dim of ``_build.MMA_HEAD_DIMS``, or
+    ``"cuda_core"`` (fp32, bf16 whose pointers are not 16-byte aligned,
+    which cp.async needs, and bf16 at D = 112 or 256). The C entry point
+    makes the same choice."""
+    return "mma" if dtype == torch.bfloat16 and aligned \
+        and head_dim in _build.MMA_HEAD_DIMS else "cuda_core"
 
 
 def flash_attention(q, k, v, causal: bool = True):

@@ -23,7 +23,7 @@ from .. import _build
 from .ref import paged_attention_ref, paged_attention_verify_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 # the bodies of csrc/paged_attention.cu, by the code its entry points report
 PATHS = ("cuda_core", "mma")
 TILE_TOKENS = 64          # tokens of one cp.async ring stage (csrc kTile)
@@ -31,16 +31,18 @@ TARGET_CTAS = 4 * 132     # about four CTAs for each of the H100's 132 SMs
 MAX_SPLIT_PAGES = 512     # table entries one CTA stages in shared memory
 
 
-def kernel_path(dtype: torch.dtype, aligned: bool = True) -> str:
+def kernel_path(dtype: torch.dtype, head_dim: int,
+                aligned: bool = True) -> str:
     """The body a CUDA call of either entry takes: ``"mma"`` (bf16 on the
     tensor cores) for bf16 with 16-byte-aligned pointers (what cp.async and
-    ldmatrix need), else ``"cuda_core"`` (fp32, and bf16 views that are not
-    aligned). Not a function of the rows: decode at G rows and verify at
-    Sq * G rows take one body, so each verify row is bitwise the decode
+    ldmatrix need) at a head dim of ``_build.MMA_HEAD_DIMS``, else
+    ``"cuda_core"`` (fp32, bf16 views that are not aligned, and bf16 at
+    D = 112 or 256). Not a function of the rows: decode at G rows and verify
+    at Sq * G rows take one body, so each verify row is bitwise the decode
     step at its position (the MoE spec run's bf16 agreement rests on it).
-    Any head dim of ``HEAD_DIMS``; the C entry points make the same
-    choice."""
-    return "mma" if dtype == torch.bfloat16 and aligned else "cuda_core"
+    The C entry points make the same choice."""
+    return "mma" if dtype == torch.bfloat16 and aligned \
+        and head_dim in _build.MMA_HEAD_DIMS else "cuda_core"
 
 
 def split_rule(b: int, hkv: int, maxp: int, page: int) -> tuple[int, int]:

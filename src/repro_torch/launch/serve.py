@@ -11,11 +11,14 @@ primitives, per-token ``RequestOutput`` deltas streamed as they are emitted.
         [--spec-decode 4 --spec-draft-layers 1]
 
 Runs on ``cuda`` unless ``--device cpu`` is given; the weights are random
-from ``--seed``. An MoE arch (``--arch granite-moe-3b-a800m``) serves with a
-zero router bias of shape (num_layers, E), as the JAX package does without
-``--restore``. The one-shot batch path, ``--replicas``, ``--faults``,
-``--journal`` and ``--restore`` arrive with later port slices and are
-rejected here.
+from ``--seed``. Every family serves: an MoE arch (``--arch
+granite-moe-3b-a800m``) with a zero router bias of shape (num_layers, E), as
+the JAX package does without ``--restore``; the SSM (``mamba2-130m``), the
+RG-LRU hybrid (``recurrentgemma-9b``), the VLM (``paligemma-3b``) and audio
+(``musicgen-medium``) with the random patches / frames the traces attach
+(``traces.attach_modality_inputs``). The one-shot batch path,
+``--replicas``, ``--faults``, ``--journal`` and ``--restore`` arrive with
+later port slices and are rejected here.
 """
 from __future__ import annotations
 
@@ -120,7 +123,8 @@ def main(argv=None):
     bias = (torch.zeros((cfg.num_layers, cfg.num_experts))
             if cfg.num_experts else None)
     lcm = math.lcm(args.page_size, args.prefill_chunk or 1)
-    raw = args.prompt_len + args.steps + 48
+    # a VLM's patch prefix occupies cache positions ahead of the prompt
+    raw = args.prompt_len + cfg.frontend_tokens + args.steps + 48
     ecfg = eng_mod.EngineConfig(
         num_slots=args.slots, max_cache=-(-raw // lcm) * lcm,
         policy=args.policy, num_classes=3,

@@ -1,5 +1,5 @@
 """Building-block layers: norms, rotary, attention, MLP (PyTorch port of
-``repro/models/layers.py``, dense path).
+``repro/models/layers.py``).
 
 Conventions:
   * parameters live in ``nn.Module``s whose attribute names are the JAX
@@ -180,43 +180,69 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
     return out.reshape(b, sq, h * hd)
 
 
-def _block_mask(q0: int, k0: int, cq: int, ckv: int, device) -> torch.Tensor:
-    """(cq, ckv) causal mask for a (q-chunk, kv-chunk) block at offsets."""
+def _window_prefix(m: torch.Tensor, qpos: torch.Tensor, kpos: torch.Tensor,
+                   window: Optional[int],
+                   prefix_len: Optional[int]) -> torch.Tensor:
+    """A causal mask ``m`` narrowed to the last ``window`` positions and
+    opened to bidirectional attention within the first ``prefix_len``
+    positions (prefix-LM, PaliGemma's image prefix)."""
+    if window is not None:
+        m = m & (kpos > qpos - window)
+    if prefix_len is not None:
+        m = m | ((qpos < prefix_len) & (kpos < prefix_len))
+    return m
+
+
+def _block_mask(q0: int, k0: int, cq: int, ckv: int, window: Optional[int],
+                prefix_len: Optional[int], device) -> torch.Tensor:
+    """(cq, ckv) mask for a (q-chunk, kv-chunk) block at offsets."""
     qpos = q0 + torch.arange(cq, device=device)[:, None]
     kpos = k0 + torch.arange(ckv, device=device)[None, :]
-    return kpos <= qpos
+    return _window_prefix(kpos <= qpos, qpos, kpos, window, prefix_len)
 
 
-def _sdpa_chunked(q, k, v, cfg: ModelConfig, q_chunk: int = 1024,
+def _block_live(q0: int, q1: int, k0: int, k1: int, window: Optional[int],
+                prefix_len: Optional[int]) -> bool:
+    """Whether any (q, k) of the block [q0, q1) x [k0, k1) is attended: the
+    causal band 0 <= q - k < window meets the block, or both lie in the
+    prefix."""
+    band = k0 <= q1 - 1 and (window is None or k1 - 1 > q0 - window)
+    return band or (prefix_len is not None and q0 < prefix_len
+                    and k0 < prefix_len)
+
+
+def _sdpa_chunked(q, k, v, cfg: ModelConfig, window: Optional[int] = None,
+                  prefix_len: Optional[int] = None, q_chunk: int = 1024,
                   kv_chunk: int = 1024) -> torch.Tensor:
     """Online softmax over KV chunks inside a loop over Q chunks — never
-    materializes the (S, S) score matrix (causal)."""
+    materializes the (S, S) score matrix. The JAX package scans chunks of
+    the largest power of two dividing S (4 at a 2,500-token prompt, which a
+    Python loop cannot afford); here the chunks are ``q_chunk`` /
+    ``kv_chunk`` long with a ragged last one, and KV chunks no query of the
+    Q chunk attends are skipped (they would add exact zeros)."""
     b, s, h, hd = q.shape
     hk = k.shape[2]
     g = h // hk
-
-    def pick(target):
-        c = min(target, s)
-        while c > 1 and s % c:
-            c //= 2
-        return max(c, 1)
-
-    cq, ckv = pick(q_chunk), pick(kv_chunk)
+    cq, ckv = min(q_chunk, s), min(kv_chunk, s)
     qt = q.reshape(b, s, hk, g, hd).permute(0, 2, 3, 1, 4)    # (B,K,G,S,D)
     kt = k.permute(0, 2, 1, 3)                                 # (B,K,S,D)
     vt = v.permute(0, 2, 1, 3)
     scale = 1.0 / math.sqrt(hd)
     blocks = []
-    for qi in range(s // cq):
-        qc = qt[:, :, :, qi * cq:(qi + 1) * cq]
-        m_run = torch.full((b, hk, g, cq), -math.inf, device=q.device)
-        l_run = torch.zeros((b, hk, g, cq), device=q.device)
-        acc = torch.zeros((b, hk, g, cq, hd), device=q.device)
-        for kj in range(s // ckv):
-            kc = kt[:, :, kj * ckv:(kj + 1) * ckv]
-            vc = vt[:, :, kj * ckv:(kj + 1) * ckv]
+    for q0 in range(0, s, cq):
+        q1 = min(q0 + cq, s)
+        qc = qt[:, :, :, q0:q1]
+        m_run = torch.full((b, hk, g, q1 - q0), -math.inf, device=q.device)
+        l_run = torch.zeros((b, hk, g, q1 - q0), device=q.device)
+        acc = torch.zeros((b, hk, g, q1 - q0, hd), device=q.device)
+        for k0 in range(0, s, ckv):
+            k1 = min(k0 + ckv, s)
+            if not _block_live(q0, q1, k0, k1, window, prefix_len):
+                continue
+            kc, vc = kt[:, :, k0:k1], vt[:, :, k0:k1]
             s_blk = torch.einsum("bkgqd,bktd->bkgqt", qc, kc).float() * scale
-            mask = _block_mask(qi * cq, kj * ckv, cq, ckv, q.device)
+            mask = _block_mask(q0, k0, q1 - q0, k1 - k0, window, prefix_len,
+                               q.device)
             s_blk = torch.where(mask, s_blk,
                                 torch.tensor(NEG_INF, device=q.device))
             m_new = torch.maximum(m_run, s_blk.amax(-1))
@@ -235,64 +261,108 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig, q_chunk: int = 1024,
 _CHUNK_THRESHOLD = 2048  # the torch backend's chunked path beyond this
 
 
-def _sdpa_dispatch(q, k, v, cfg: ModelConfig, backend: str) -> torch.Tensor:
-    """Causal full-sequence attention. ``"kernel"`` runs the flash kernel
-    (its plain version on CPU tensors); ``"torch"`` the XLA-path mirror
-    (``_sdpa`` / ``_sdpa_chunked``). Window and prefix-LM masks never occur
-    for the dense family this port serves."""
+def _sdpa_dispatch(q, k, v, cfg: ModelConfig, backend: str,
+                   window: Optional[int] = None,
+                   prefix_len: Optional[int] = None) -> torch.Tensor:
+    """Full-sequence attention, causal, optionally sliding-window and / or
+    prefix-LM. ``"kernel"`` runs the flash kernel (its plain version on CPU
+    tensors) where the mask is plainly causal: like the TPU kernel it takes
+    neither a window nor a prefix, so those masks take the torch path on
+    either backend. ``"torch"`` is the XLA-path mirror (``_sdpa`` /
+    ``_sdpa_chunked``)."""
     check_backend(backend)
     b, s, h, hd = q.shape
-    if backend == "kernel":
+    if backend == "kernel" and window is None and prefix_len is None:
         out = flash_attention(q.transpose(1, 2).contiguous(),
                               k.transpose(1, 2).contiguous(),
                               v.transpose(1, 2).contiguous(), causal=True)
         return out.transpose(1, 2).reshape(b, s, h * hd)
     if s > _CHUNK_THRESHOLD:
-        return _sdpa_chunked(q, k, v, cfg)
-    return _sdpa(q, k, v, causal_mask(s, s, device=q.device), cfg)
+        return _sdpa_chunked(q, k, v, cfg, window, prefix_len)
+    return _sdpa(q, k, v, causal_mask(s, s, window, prefix_len,
+                                      device=q.device), cfg)
 
 
-def causal_mask(sq: int, skv: int, device=None) -> torch.Tensor:
-    """(1, sq, skv) causal mask; sq positions are the last sq of skv."""
+def causal_mask(sq: int, skv: int, window: Optional[int] = None,
+                prefix_len: Optional[int] = None,
+                device=None) -> torch.Tensor:
+    """(1, sq, skv) causal (optionally sliding-window, optionally prefix-LM)
+    mask; sq positions are the last sq of skv."""
     qpos = torch.arange(sq, device=device)[:, None] + (skv - sq)
     kpos = torch.arange(skv, device=device)[None, :]
-    return (kpos <= qpos)[None]
+    return _window_prefix(kpos <= qpos, qpos, kpos, window, prefix_len)[None]
+
+
+def masked_copy_(dst: torch.Tensor, src: torch.Tensor,
+                 active: Optional[torch.Tensor]) -> torch.Tensor:
+    """dst <- src in place; rows (dim 0) where ``active`` is False keep
+    their values — the freeze of inactive slots' slot-row caches (recurrent
+    state, ring buffers), which the JAX package applies to the new cache it
+    returns."""
+    src = src.to(dst.dtype)
+    if active is not None:
+        src = torch.where(active.reshape((-1,) + (1,) * (src.dim() - 1)),
+                          src, dst)
+    return dst.copy_(src)
 
 
 def attention_prefill(params: Attention, x: torch.Tensor, cfg: ModelConfig,
-                      cache: dict, backend: str = "kernel"):
-    """Full-sequence pass that also fills the dense decode cache (in place)."""
+                      cache: dict, backend: str = "kernel",
+                      window: Optional[int] = None,
+                      prefix_len: Optional[int] = None):
+    """Full-sequence pass that also fills the dense decode cache (in place).
+    A sliding-window layer's cache is a ring buffer: past its length the
+    last positions land at their ring slots."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _qkv(params, x, cfg, positions)
-    out = _sdpa_dispatch(q, k, v, cfg, backend)
+    out = _sdpa_dispatch(q, k, v, cfg, backend, window, prefix_len)
     s_max = cache["k"].shape[1]
-    cache["k"][:, :min(s, s_max)] = k[:, :s_max]
-    cache["v"][:, :min(s, s_max)] = v[:, :s_max]
+    if window is not None and s > s_max:
+        slots = torch.arange(s - s_max, s, device=x.device) % s_max
+        cache["k"][:, slots] = k[:, -s_max:]
+        cache["v"][:, slots] = v[:, -s_max:]
+    else:
+        cache["k"][:, :min(s, s_max)] = k[:, :s_max]
+        cache["v"][:, :min(s, s_max)] = v[:, :s_max]
     return out @ params.wo, cache
 
 
 def attention_decode(params: Attention, x: torch.Tensor, cfg: ModelConfig,
-                     cache: dict, pos: torch.Tensor):
+                     cache: dict, pos: torch.Tensor,
+                     window: Optional[int] = None,
+                     active: Optional[torch.Tensor] = None):
     """One-token decode against the dense cache {'k','v': (B, S_max, Hkv, D)}
     (updated in place). ``pos`` is () for a lockstep batch or (B,) when each
-    row sits at its own depth."""
+    row sits at its own depth. With ``window`` the cache is a ring buffer of
+    S_max slots and a row attends its last min(pos + 1, S_max) writes.
+    ``active`` (B,) keeps the cache rows of inactive lanes unchanged (their
+    output is garbage the caller discards)."""
     b = x.shape[0]
     per_slot = pos.dim() == 1
     positions = pos[:, None] if per_slot else pos.expand(b, 1)
     q, k, v = _qkv(params, x, cfg, positions)
     s_max = cache["k"].shape[1]
+    slot = pos.long() % s_max if window is not None else pos.long()
     if per_slot:
         rows = torch.arange(b, device=x.device)
-        cache["k"][rows, pos.long()] = k[:, 0]
-        cache["v"][rows, pos.long()] = v[:, 0]
-        qref = pos[:, None]
+        for name, new in (("k", k[:, 0]), ("v", v[:, 0])):
+            if active is not None:
+                new = torch.where(active[:, None, None], new,
+                                  cache[name][rows, slot])
+            cache[name][rows, slot] = new
+        qref, sref = pos[:, None], slot[:, None]
     else:
-        cache["k"].index_copy_(1, pos.long().reshape(1), k)
-        cache["v"].index_copy_(1, pos.long().reshape(1), v)
-        qref = pos.reshape(1, 1)
+        cache["k"].index_copy_(1, slot.reshape(1), k)
+        cache["v"].index_copy_(1, slot.reshape(1), v)
+        qref, sref = pos.reshape(1, 1), slot.reshape(1, 1)
     kpos = torch.arange(s_max, device=x.device)[None, :]
-    mask = kpos <= qref                               # (B|1, S_max)
+    if window is not None:
+        # ring buffer: the valid slots are the last min(pos + 1, s_max)
+        age = (sref - kpos) % s_max
+        mask = age < torch.clamp(qref + 1, max=s_max)
+    else:
+        mask = kpos <= qref                           # (B|1, S_max)
     out = _sdpa(q, cache["k"], cache["v"], mask[:, None, :], cfg)
     return out @ params.wo, cache
 

@@ -1,8 +1,10 @@
 """Top-level model API: init / prefill / decode / sampling / paged-pool surgery
-(PyTorch port of ``repro/models/model.py``, dense and MoE families).
+(PyTorch port of ``repro/models/model.py``), uniform across families.
 
-Batch layouts: prefill ``{"tokens": (B, S) int}``, decode
-``{"token": (B, 1) int}`` plus a cache and its ``pos``. The model is a
+Batch layouts: prefill ``{"tokens": (B, S) int, "patches": (B, P, Fd),
+"frames": (B, S, Fd)}``, decode ``{"token": (B, 1) int, "frame": (B, 1,
+Fd)}`` (patches for the VLM, frames for audio) plus a cache and its
+``pos``. The model is a
 :class:`Model` module; every function takes it as ``params`` so the call
 shapes mirror the JAX package's. Caches are updated in place (see
 ``layers``); the returned cache dicts share their tensors with the inputs.
@@ -17,9 +19,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import configs, prng
+from .. import prng
 from ..configs.base import ModelConfig
-from . import layers, transformer
+from . import frontends, layers, transformer
 from .layers import RMSNorm, dtype_of, embed_init, rmsnorm
 
 
@@ -37,14 +39,14 @@ class SamplingSpec(NamedTuple):
 
 
 class Model(nn.Module):
-    """Token embedding, the block stack and the final norm (+ untied head).
-    ``gen=None`` allocates the parameters uninitialised (to be filled, e.g.
-    by :func:`params_from_numpy`)."""
+    """Token embedding, the block stack and the final norm (+ untied head,
+    + the frontend projection of the VLM and audio families). ``gen=None``
+    allocates the parameters uninitialised (to be filled, e.g. by
+    :func:`params_from_numpy`)."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
                  device):
         super().__init__()
-        configs.require_supported(cfg)
         dt = dtype_of(cfg)
         self.embed = layers._param(embed_init(gen, cfg.vocab_size, cfg.d_model,
                                               dt, device))
@@ -53,6 +55,8 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.head = layers._param(embed_init(gen, cfg.vocab_size,
                                                  cfg.d_model, dt, device))
+        if cfg.frontend_dim:
+            self.frontend = frontends.init_frontend(cfg, gen, device)
 
     @property
     def device(self) -> torch.device:
@@ -75,12 +79,13 @@ def _tensor(a) -> torch.Tensor:
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Model:
     """The JAX package's parameter tree (nested dicts of numpy arrays; the
-    stack as ``[[block dict]]`` with a leading depth dimension) as a
-    :class:`Model` on ``device`` — how both packages compute on the same
-    weights. Each leaf is copied into its parameter's own dtype, so an MoE
-    block's ``moe.w_router`` stays float32 in a bf16 model, as in the JAX
-    package."""
+    stack as a list per segment of one block dict per pattern position, each
+    leaf with a leading repeat dimension) as a :class:`Model` on ``device``
+    — how both packages compute on the same weights. Each leaf is copied
+    into its parameter's own dtype, so an MoE block's ``moe.w_router`` stays
+    float32 in a bf16 model, as in the JAX package."""
     model = Model(cfg, None, torch.device(device))
+    where = transformer.layer_index(cfg)
 
     def leaf(node, path):
         for k in path:
@@ -91,8 +96,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Model:
         for name, p in model.named_parameters():
             path = name.split(".")
             if path[0] == "blocks":
-                li, rest = int(path[1]), path[2:]
-                arr = leaf(tree["stack"][0][0], rest)[li]
+                si, r, pi = where[int(path[1])]
+                arr = leaf(tree["stack"][si][pi], path[2:])[r]
             else:
                 arr = leaf(tree, path)
             src = _tensor(arr)
@@ -179,15 +184,29 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> dict:
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _inputs(params: Model, cfg: ModelConfig, batch: dict):
+    """Prompt embeddings and the prefix length: the VLM's projected patches
+    ahead of the text (a prefix of ``frontend_tokens`` positions), audio's
+    projected frames added to the token embeddings, else the tokens."""
+    x = _embed(params, cfg, batch["tokens"])
+    if cfg.family == "vlm":
+        prefix = frontends.project_frontend(params.frontend, batch["patches"])
+        return torch.cat([prefix, x], dim=1), prefix.shape[1]
+    if cfg.family == "audio":
+        x = x + frontends.project_frontend(params.frontend, batch["frames"])
+    return x, 0
+
+
 def prefill(params: Model, cfg: ModelConfig, batch: dict, cache: dict,
             attn_backend: str = "kernel",
             router_bias: Optional[torch.Tensor] = None):
     """Batched prompt processing; fills the cache (in place) and returns the
-    last-position logits (B, 1, V) fp32 and the cache."""
-    x = _embed(params, cfg, batch["tokens"])
+    last-position logits (B, 1, V) fp32 and the cache, whose ``pos`` counts
+    the prompt's positions (a VLM's patch prefix included)."""
+    x, plen = _inputs(params, cfg, batch)
     x, layer_caches = transformer.apply_stack_prefill(
         params.blocks, x, cfg, cache["layers"], attn_backend=attn_backend,
-        bias=router_bias)
+        bias=router_bias, prefix_len=plen or None)
     logits = _head(params, cfg, x[:, -1:])
     return logits, {"layers": layer_caches,
                     "pos": torch.tensor(x.shape[1], dtype=torch.int32,
@@ -199,10 +218,18 @@ def decode_step(params: Model, cfg: ModelConfig, batch: dict, cache: dict,
                 active: Optional[torch.Tensor] = None,
                 attn_backend: str = "kernel",
                 router_bias: Optional[torch.Tensor] = None):
-    """One token for every sequence. ``table`` (B, maxp) switches the
-    attention layers onto the paged pool (``active`` routes inactive lanes'
-    writes to the null page). Returns (logits (B, 1, V), cache with pos+1)."""
+    """One token for every sequence (audio adds ``batch["frame"]``).
+    ``table`` (B, maxp) switches the full-attention layers onto the paged
+    pool (``active`` routes inactive lanes' writes to the null page).
+    ``active`` also freezes the slot-row caches (recurrent state, ring
+    buffers) of inactive lanes: a garbage lane must never advance state a
+    chunked prefill is threading through that row between ticks. The JAX
+    package applies the freeze to the new caches it returns; here the
+    layers' in-place writes are masked. Returns (logits (B, 1, V), cache
+    with pos+1)."""
     x = _embed(params, cfg, batch["token"])
+    if cfg.family == "audio":
+        x = x + frontends.project_frontend(params.frontend, batch["frame"])
     x, layer_caches = transformer.apply_stack_decode(
         params.blocks, x, cfg, cache["layers"], cache["pos"], table=table,
         active=active, attn_backend=attn_backend, bias=router_bias)
@@ -247,18 +274,22 @@ def init_slot_cache_paged(cfg: ModelConfig, num_slots: int, s_max: int,
 
 def insert_slot_cache_paged(pool: dict, one: dict, cfg: ModelConfig,
                             slot: int, table_row: torch.Tensor) -> dict:
-    """Splice a one-shot prefilled batch-of-1 dense cache into ``slot``'s
-    pages (in place): each layer's dense (1, s_max, ...) row is reshaped to
-    (maxp, page, ...) and scattered to the slot's physical pages; rows beyond
-    the slot's allocation land on the null page."""
+    """Splice a one-shot prefilled batch-of-1 dense cache into the pool (in
+    place). Full-attention leaves: the dense (1, s_max, ...) row is reshaped
+    to (maxp, page, ...) and scattered to the slot's physical pages; rows
+    beyond the slot's allocation land on the null page. Slot-row leaves
+    (recurrent state, ring buffers) are whole-row copies at ``slot``,
+    erasing any stale state of the slot's previous occupant."""
     idx = table_row.long()
 
     def splice(kind, full_d, one_d):
         for name, full in full_d.items():
-            reps, page = full.shape[0], full.shape[2]
-            chunks = one_d[name].to(full.dtype).reshape(reps, -1, page,
-                                                        *full.shape[3:])
-            full[:, idx] = chunks
+            if kind in transformer.PAGED_KINDS:
+                reps, page = full.shape[0], full.shape[2]
+                full[:, idx] = one_d[name].to(full.dtype).reshape(
+                    reps, -1, page, *full.shape[3:])
+            else:
+                full[:, slot] = one_d[name][:, 0].to(full.dtype)
         return full_d
 
     transformer.map_block_caches(cfg, splice, pool["layers"], one["layers"])
@@ -267,23 +298,35 @@ def insert_slot_cache_paged(pool: dict, one: dict, cfg: ModelConfig,
 
 
 def release_slot_cache_paged(pool: dict, cfg: ModelConfig, slot: int) -> dict:
-    """Retire a slot: zero its position. Physical pages are not zeroed —
-    they return to the host free list, and stale contents are read masked."""
+    """Retire a slot: zero its slot-row (recurrent / ring) leaves and its
+    position. Physical pages are not zeroed — they return to the host free
+    list, and stale contents are read masked."""
+    def wipe(kind, full_d):
+        if kind not in transformer.PAGED_KINDS:
+            for full in full_d.values():
+                full[:, slot] = 0
+        return full_d
+
+    transformer.map_block_caches(cfg, wipe, pool["layers"])
     pool["pos"][slot] = 0
     return pool
 
 
 def prefill_chunk(params: Model, cfg: ModelConfig, batch: dict, pool: dict,
                   table_row: torch.Tensor, p0: int, last_idx: int,
-                  attn_backend: str = "kernel",
+                  slot: int = 0, attn_backend: str = "kernel",
                   router_bias: Optional[torch.Tensor] = None):
-    """One chunk of a chunked prefill written straight into the paged pool;
-    returns the logits at in-chunk index ``last_idx`` (1, 1, V). The pool's
-    ``pos`` is untouched. The chunk's attention has one route;
-    ``attn_backend`` picks the expert products'."""
+    """One chunk of a chunked prefill written straight into the paged pool
+    (``batch["frames"]`` too for audio); ``slot`` is the row whose
+    recurrent state an SSM threads across chunks. Returns the logits at
+    in-chunk index ``last_idx`` (1, 1, V). The pool's ``pos`` is untouched.
+    The chunk's attention has one route; ``attn_backend`` picks the expert
+    products'."""
     x = _embed(params, cfg, batch["tokens"])
+    if cfg.family == "audio":
+        x = x + frontends.project_frontend(params.frontend, batch["frames"])
     x, layer_caches = transformer.apply_stack_prefill_chunk(
-        params.blocks, x, cfg, pool["layers"], table_row, p0,
+        params.blocks, x, cfg, pool["layers"], table_row, p0, slot=slot,
         attn_backend=attn_backend, bias=router_bias)
     logits = _head(params, cfg, x[:, last_idx:last_idx + 1])
     return logits, {"layers": layer_caches, "pos": pool["pos"]}
@@ -294,7 +337,8 @@ def prefill_chunk_multi(params: Model, cfg: ModelConfig, batch: dict,
                         last_idx: torch.Tensor, attn_backend: str = "kernel",
                         router_bias: Optional[torch.Tensor] = None):
     """J concurrent prefill chunks (one in-flight job per lane) in one call;
-    returns (J, 1, V) logits at each lane's ``last_idx``."""
+    returns (J, 1, V) logits at each lane's ``last_idx``. Attention-stack
+    configs only."""
     x = _embed(params, cfg, batch["tokens"])
     x, layer_caches = transformer.apply_stack_prefill_chunk_multi(
         params.blocks, x, cfg, pool["layers"], tables, p0s,
@@ -307,10 +351,12 @@ def prefill_chunk_multi(params: Model, cfg: ModelConfig, batch: dict,
 
 def copy_page_paged(pool: dict, cfg: ModelConfig, src: int, dst: int) -> dict:
     """Copy-on-write fork: duplicate physical page ``src`` into ``dst`` in
-    every layer's pool (in place)."""
+    every full-attention layer's pool (in place); slot-row leaves are left
+    alone."""
     def cp(kind, full_d):
-        for full in full_d.values():
-            full[:, dst] = full[:, src]
+        if kind in transformer.PAGED_KINDS:
+            for full in full_d.values():
+                full[:, dst] = full[:, src]
         return full_d
 
     transformer.map_block_caches(cfg, cp, pool["layers"])
@@ -318,15 +364,17 @@ def copy_page_paged(pool: dict, cfg: ModelConfig, src: int, dst: int) -> dict:
 
 
 def scrub_pages_paged(pool: dict, cfg: ModelConfig, pages) -> dict:
-    """Zero the K/V of physical ``pages`` in every layer's pool (in place)."""
+    """Zero the K/V of physical ``pages`` in every full-attention layer's
+    pool (in place); slot-row leaves are left alone."""
     if not pages:
         return pool
     idx = torch.as_tensor(list(pages), dtype=torch.long,
                           device=pool["pos"].device)
 
     def zero(kind, full_d):
-        for full in full_d.values():
-            full.index_fill_(1, idx, 0)
+        if kind in transformer.PAGED_KINDS:
+            for full in full_d.values():
+                full.index_fill_(1, idx, 0)
         return full_d
 
     transformer.map_block_caches(cfg, zero, pool["layers"])

@@ -1,12 +1,21 @@
-"""Decoder stack: blocks, the layer loop and the KV caches (PyTorch port of
-``repro/models/transformer.py``, ``attn`` and ``moe`` block kinds).
+"""Decoder stack: blocks, the layer loop, hybrid patterns and the caches
+(PyTorch port of ``repro/models/transformer.py``).
 
-The parameters are an ``nn.ModuleList`` of per-layer ``Block`` modules and the
-JAX package's ``lax.scan`` over stacked layers becomes a Python loop. The
-caches keep the JAX package's segment structure — ``[[{"k", "v"}]]`` with a
-leading depth dimension — so one tensor holds every layer's pool (the
+The parameters are an ``nn.ModuleList`` of per-layer ``Block`` modules in
+depth order, and the JAX package's ``lax.scan`` over stacked layers becomes
+a Python loop. The caches keep the JAX package's segment structure — a list
+per segment of one dict per pattern position, each leaf with a leading
+repeat dimension — so one tensor holds every layer of a position (the
 engine's page copies and splices touch all layers in one op) and each layer
-updates its ``[l]`` view in place.
+updates its ``[r]`` view in place. Hybrid archs (recurrentgemma) tile their
+``block_pattern`` as a segment of whole repeats plus a tail segment.
+
+Block kinds: ``attn`` (full attention + MLP), ``local`` (sliding-window
+attention, a ring-buffer cache), ``moe`` (attention + the mixture of
+experts), ``ssm`` (the mamba-2 mixer alone) and ``rglru`` (the Griffin
+recurrent block + MLP). In the serving engine's paged pool only ``attn`` and
+``moe`` layers are paged (``PAGED_KINDS``); the others keep one cache row
+per slot.
 
 MoE stacks take ``bias``, the (num_layers, E) immune router bias: layer ``l``
 routes with row ``l``, and a ``truncate_stack`` draft, being the leading
@@ -15,37 +24,69 @@ kernel's route, the expert products' included (``layers.BACKENDS``).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
-from .. import configs
 from ..configs.base import ModelConfig
-from . import layers, moe
+from . import layers, moe, rglru, ssm
 from .layers import RMSNorm, rmsnorm
+
+MIXER_KINDS = ("attn", "local", "moe", "ssm", "rglru")
+PAGED_KINDS = ("attn", "moe")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
-    configs.require_supported(cfg)
     if cfg.family == "moe":
         return ["moe"] * cfg.num_layers
+    if cfg.family == "ssm":
+        return ["ssm"] * cfg.num_layers
+    if cfg.family == "hybrid":
+        pat = list(cfg.block_pattern)
+        return [pat[i % len(pat)] for i in range(cfg.num_layers)]
     return ["attn"] * cfg.num_layers
 
 
 def segments(cfg: ModelConfig) -> list[tuple[tuple[str, ...], int]]:
     """Decompose the depth into (pattern, repeats) segments."""
     kinds = layer_kinds(cfg)
+    if cfg.family == "hybrid":
+        pat = tuple(cfg.block_pattern)
+        reps = cfg.num_layers // len(pat)
+        segs = [(pat, reps)] if reps else []
+        tail = tuple(kinds[reps * len(pat):])
+        if tail:
+            segs.append((tail, 1))
+        return segs
     return [((kinds[0],), cfg.num_layers)]
 
 
-class Block(nn.Module):
-    """One pre-norm decoder block: attention, then a gated MLP (``attn``)
-    or the mixture of experts (``moe``)."""
+def layer_index(cfg: ModelConfig) -> list[tuple[int, int, int]]:
+    """(segment, repeat, pattern position) of every layer in depth order."""
+    return [(si, r, pi) for si, (pattern, reps) in enumerate(segments(cfg))
+            for r in range(reps) for pi in range(len(pattern))]
 
-    def __init__(self, cfg: ModelConfig, kind: str, gen: torch.Generator,
-                 device):
+
+class Block(nn.Module):
+    """One pre-norm block of ``kind``: the mixer (attention, the mamba-2
+    mixer or the recurrent block), then — but for ``ssm`` — a gated MLP or
+    the mixture of experts."""
+
+    def __init__(self, cfg: ModelConfig, kind: str,
+                 gen: Optional[torch.Generator], device):
         super().__init__()
+        if kind not in MIXER_KINDS:
+            raise ValueError(kind)
+        self.kind = kind
         self.norm1 = RMSNorm(cfg.d_model, device)
-        self.mixer = layers.Attention(cfg, gen, device)
+        if kind == "ssm":
+            self.mixer = ssm.init_ssm(cfg, gen, device)
+            return
+        if kind == "rglru":
+            self.mixer = rglru.init_rglru(cfg, gen, device)
+        else:
+            self.mixer = layers.Attention(cfg, gen, device)
         self.norm2 = RMSNorm(cfg.d_model, device)
         if kind == "moe":
             self.moe = moe.MoE(cfg, gen, device)
@@ -53,7 +94,8 @@ class Block(nn.Module):
             self.mlp = layers.MLP(cfg, gen, device)
 
 
-def init_stack(cfg: ModelConfig, gen: torch.Generator, device) -> nn.ModuleList:
+def init_stack(cfg: ModelConfig, gen: Optional[torch.Generator],
+               device) -> nn.ModuleList:
     return nn.ModuleList(Block(cfg, kind, gen, device)
                          for kind in layer_kinds(cfg))
 
@@ -64,7 +106,9 @@ def _layer_cache(seg_cache: dict, li: int) -> dict:
 
 def _ffn_residual(blk: Block, x, cfg, bias, backend: str):
     """x + the block's feed-forward: the MoE routed with ``bias`` (its
-    layer's (E,) row), or the dense MLP."""
+    layer's (E,) row), the dense MLP, or nothing (``ssm``)."""
+    if blk.kind == "ssm":
+        return x
     h = rmsnorm(blk.norm2, x, cfg)
     if hasattr(blk, "moe"):
         return x + moe.moe_ffn(blk.moe, h, cfg, bias, backend=backend)[0]
@@ -75,31 +119,56 @@ def _row(bias, li: int):
     return None if bias is None else bias[li]
 
 
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
+                     dtype, device) -> dict:
+    """One layer's dense decode cache: K/V rows (``attn``, ``moe``), a ring
+    buffer of min(s_max, local_window) positions (``local``), or the
+    recurrent state (``ssm``, ``rglru``)."""
+    if kind in PAGED_KINDS:
+        return layers.init_attention_cache(cfg, batch, s_max, dtype, device)
+    if kind == "local":
+        return layers.init_attention_cache(
+            cfg, batch, min(s_max, cfg.local_window), dtype, device)
+    if kind == "ssm":
+        return ssm.init_ssm_cache(cfg, batch, dtype, device)
+    if kind == "rglru":
+        return rglru.init_rglru_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)
+
+
 def _stack_cache(one: dict, reps: int) -> dict:
-    return {name: t.unsqueeze(0).repeat((reps,) + (1,) * t.dim())
+    """``reps`` zero copies of a freshly initialised (zero) cache, stacked."""
+    return {name: t.new_zeros((reps,) + tuple(t.shape))
             for name, t in one.items()}
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, s_max: int, dtype,
                      device) -> list:
     """Dense decode caches, mirroring the segment structure."""
-    return [[_stack_cache(layers.init_attention_cache(cfg, batch, s_max, dtype,
-                                                      device), reps)
-             for _ in pattern] for pattern, reps in segments(cfg)]
+    return [[_stack_cache(init_block_cache(cfg, kind, batch, s_max, dtype,
+                                           device), reps)
+             for kind in pattern] for pattern, reps in segments(cfg)]
 
 
 def init_stack_cache_paged(cfg: ModelConfig, num_slots: int, s_max: int,
                            num_pages: int, page_size: int, dtype,
                            device) -> list:
     """Paged decode caches: every full-attention layer gets a physical page
-    pool (num_pages, page_size, Hkv, D), stacked over depth."""
-    hk, hd = cfg.num_kv_heads, cfg.head_dim
+    pool (num_pages, page_size, Hkv, D), stacked over depth; sliding-window
+    layers keep slot-row ring buffers and recurrent layers their slot-row
+    states — none of those holds a worst-case sequence reservation, so only
+    full attention is paged."""
     out = []
     for pattern, reps in segments(cfg):
-        shape = (reps, num_pages, page_size, hk, hd)
-        out.append([{"k": torch.zeros(shape, dtype=dtype, device=device),
-                     "v": torch.zeros(shape, dtype=dtype, device=device)}
-                    for _ in pattern])
+        seg = []
+        for kind in pattern:
+            if kind in PAGED_KINDS:
+                seg.append(_stack_cache(layers.init_attention_cache_paged(
+                    cfg, num_pages, page_size, dtype, device), reps))
+            else:
+                seg.append(_stack_cache(init_block_cache(
+                    cfg, kind, num_slots, s_max, dtype, device), reps))
+        out.append(seg)
     return out
 
 
@@ -115,22 +184,28 @@ def map_block_caches(cfg: ModelConfig, fn, *trees):
 
 def _layers(stack: nn.ModuleList, cfg: ModelConfig, caches: list):
     """(block, per-layer cache view) pairs in depth order."""
-    li = 0
-    for (pattern, reps), seg_cache in zip(segments(cfg), caches):
-        for r in range(reps):
-            for pi in range(len(pattern)):
-                yield stack[li], _layer_cache(seg_cache[pi], r)
-                li += 1
+    for blk, (si, r, pi) in zip(stack, layer_index(cfg)):
+        yield blk, _layer_cache(caches[si][pi], r)
 
 
 def apply_stack_prefill(stack: nn.ModuleList, x, cfg: ModelConfig,
                         caches: list, attn_backend: str = "kernel",
-                        bias=None):
-    """Full-sequence pass that fills the dense decode caches in place.
-    Returns (x, caches)."""
+                        bias=None, prefix_len: Optional[int] = None):
+    """Full-sequence pass that fills the dense decode caches in place;
+    ``prefix_len`` opens bidirectional attention over the first positions
+    (the VLM's patch prefix). Returns (x, caches)."""
     for li, (blk, cache) in enumerate(_layers(stack, cfg, caches)):
-        y, _ = layers.attention_prefill(blk.mixer, rmsnorm(blk.norm1, x, cfg),
-                                        cfg, cache, backend=attn_backend)
+        h = rmsnorm(blk.norm1, x, cfg)
+        if blk.kind == "ssm":
+            y, _ = ssm.ssm_block_prefill(blk.mixer, h, cfg, cache)
+        elif blk.kind == "rglru":
+            y, _ = rglru.rglru_block_prefill(blk.mixer, h, cfg, cache)
+        else:
+            window = cfg.local_window if blk.kind == "local" else None
+            y, _ = layers.attention_prefill(blk.mixer, h, cfg, cache,
+                                            backend=attn_backend,
+                                            window=window,
+                                            prefix_len=prefix_len)
         x = _ffn_residual(blk, x + y, cfg, _row(bias, li), attn_backend)
     return x, caches
 
@@ -150,10 +225,21 @@ def apply_layers_decode(pairs, x, cfg: ModelConfig, pos: torch.Tensor,
                         bias=None):
     """One-token pass through (block, cache view) ``pairs`` — the whole stack
     (``apply_stack_decode``) or a truncated one (``truncate_stack``); pair
-    ``i`` routes with bias row ``i``."""
+    ``i`` routes with bias row ``i``. Full-attention layers take the paged
+    pool when ``table`` is given; sliding-window and recurrent layers keep
+    their slot-row caches either way and advance only the rows where
+    ``active`` (the JAX package's freeze of inactive slots)."""
     for li, (blk, cache) in enumerate(pairs):
         h = rmsnorm(blk.norm1, x, cfg)
-        if table is not None:
+        if blk.kind == "ssm":
+            y, _ = ssm.ssm_block_decode(blk.mixer, h, cfg, cache, active)
+        elif blk.kind == "rglru":
+            y, _ = rglru.rglru_block_decode(blk.mixer, h, cfg, cache, active)
+        elif blk.kind == "local":
+            y, _ = layers.attention_decode(blk.mixer, h, cfg, cache, pos,
+                                           window=cfg.local_window,
+                                           active=active)
+        elif table is not None:
             y, _ = layers.attention_decode_paged(blk.mixer, h, cfg, cache, pos,
                                                  table, active,
                                                  backend=attn_backend)
@@ -174,12 +260,20 @@ def apply_stack_decode(stack: nn.ModuleList, x, cfg: ModelConfig, caches: list,
                                attn_backend=attn_backend, bias=bias), caches
 
 
+def _attention_only(blk: Block, what: str) -> None:
+    """Verify and multi-job chunk prefill need rows with no cross-position
+    state: attention-stack kinds only (the engine gates them)."""
+    if blk.kind not in PAGED_KINDS:
+        raise NotImplementedError(f"{what} unsupported for {blk.kind!r}")
+
+
 def apply_block_verify(blk: Block, x, cfg: ModelConfig, cache: dict,
                        pos: torch.Tensor, table: torch.Tensor, active=None,
                        attn_backend: str = "kernel", bias=None):
     """Sq-position verify block step against the paged pool (``attn`` and
     ``moe`` kinds: no slot-row state, so every (lane, position) row is
     independent; the MoE is dropless at the engine's decode capacity)."""
+    _attention_only(blk, "verify step")
     y, _ = layers.attention_verify_paged(blk.mixer, rmsnorm(blk.norm1, x, cfg),
                                          cfg, cache, pos, table, active,
                                          backend=attn_backend)
@@ -200,13 +294,25 @@ def apply_stack_verify(stack: nn.ModuleList, x, cfg: ModelConfig,
 
 def apply_stack_prefill_chunk(stack: nn.ModuleList, x, cfg: ModelConfig,
                               caches: list, table_row: torch.Tensor, p0: int,
-                              attn_backend: str = "kernel", bias=None):
-    """One prefill chunk (batch of 1) against the paged pool. The chunk's
+                              slot: int = 0, attn_backend: str = "kernel",
+                              bias=None):
+    """One prefill chunk (batch of 1): full-attention layers write the
+    chunk's K/V into the slot's pages, SSM layers thread the slot's state
+    row (``slot``) across chunks. Sliding-window and RG-LRU layers are not
+    chunkable (the engine prefills those configs one-shot). The chunk's
     attention has one route (gather + ``_sdpa``); ``attn_backend`` picks the
     expert products'."""
     for li, (blk, cache) in enumerate(_layers(stack, cfg, caches)):
-        y, _ = layers.attention_prefill_paged(
-            blk.mixer, rmsnorm(blk.norm1, x, cfg), cfg, cache, table_row, p0)
+        h = rmsnorm(blk.norm1, x, cfg)
+        if blk.kind in PAGED_KINDS:
+            y, _ = layers.attention_prefill_paged(blk.mixer, h, cfg, cache,
+                                                  table_row, p0)
+        elif blk.kind == "ssm":
+            row = {name: t[slot:slot + 1] for name, t in cache.items()}
+            y, _ = ssm.ssm_block_prefill_chunk(blk.mixer, h, cfg, row)
+        else:
+            raise NotImplementedError(
+                f"chunked prefill unsupported for {blk.kind!r}")
         x = _ffn_residual(blk, x + y, cfg, _row(bias, li), attn_backend)
     return x, caches
 
@@ -215,9 +321,11 @@ def apply_stack_prefill_chunk_multi(stack: nn.ModuleList, x, cfg: ModelConfig,
                                     caches: list, tables: torch.Tensor,
                                     p0s: torch.Tensor,
                                     attn_backend: str = "kernel", bias=None):
-    """J concurrent prefill chunks (one lane per in-flight job) in one pass;
-    ``attn_backend`` as in ``apply_stack_prefill_chunk``."""
+    """J concurrent prefill chunks (one lane per in-flight job) in one pass —
+    attention-stack kinds only; ``attn_backend`` as in
+    ``apply_stack_prefill_chunk``."""
     for li, (blk, cache) in enumerate(_layers(stack, cfg, caches)):
+        _attention_only(blk, "batched chunk prefill")
         y, _ = layers.attention_prefill_paged_multi(
             blk.mixer, rmsnorm(blk.norm1, x, cfg), cfg, cache, tables, p0s)
         x = _ffn_residual(blk, x + y, cfg, _row(bias, li), attn_backend)

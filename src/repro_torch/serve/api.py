@@ -123,7 +123,9 @@ class ServeRequest:
     ``rclass`` buckets requests into the classes the immune admission
     controller remembers; ``arrival`` is the tick the request enters the
     queue; ``deadline`` is wall-clock seconds after submission and, when set,
-    overrides the engine's tick budget for this request's SLO accounting."""
+    overrides the engine's tick budget for this request's SLO accounting.
+    ``patches`` (a VLM's image prefix) and ``frames`` (audio, one row per
+    prompt token) are the stub frontends' precomputed embeddings."""
 
     rid: int
     tokens: np.ndarray                     # (L,) int32 prompt
@@ -131,6 +133,8 @@ class ServeRequest:
     rclass: int = 0
     arrival: int = 0
     deadline: Optional[float] = None
+    patches: Optional[np.ndarray] = None   # vlm prefix embeddings (P, Fd)
+    frames: Optional[np.ndarray] = None    # audio frame embeddings (L, Fd)
 
     # slot-group membership (serve.groups): group == -1 is a standalone
     # request; members carry the parent rid in ``group`` and their lane index
@@ -172,10 +176,17 @@ class ServeRequest:
         return self.finish_time - self.submit_time
 
     def prompts(self, device) -> dict:
-        """The prefill batch of one for this request."""
-        return {"tokens": torch.as_tensor(np.asarray(self.tokens),
-                                          dtype=torch.int64,
-                                          device=device)[None]}
+        """The prefill batch of one for this request (with its patches or
+        frames) — what every backend feeds the model."""
+        p = {"tokens": torch.as_tensor(np.asarray(self.tokens),
+                                       dtype=torch.int64, device=device)[None]}
+        if self.patches is not None:
+            p["patches"] = torch.as_tensor(np.asarray(self.patches),
+                                           device=device)[None]
+        if self.frames is not None:
+            p["frames"] = torch.as_tensor(np.asarray(self.frames),
+                                          device=device)[None]
+        return p
 
 
 @dataclass

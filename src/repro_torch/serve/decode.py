@@ -44,8 +44,9 @@ def generate(params, cfg: ModelConfig, prompts: dict, max_cache: int,
              use_penalties: bool = False, return_topk: int = 0,
              attn_backend: str = "kernel",
              router_bias: Optional[torch.Tensor] = None):
-    """Prefill the prompt batch, then emit ``steps`` tokens — argmax by
-    default, per-lane sampled under ``sampling``. Returns ``(tokens (B,
+    """Prefill the prompt batch (with its patches or frames), then emit
+    ``steps`` tokens — argmax by default, per-lane sampled under
+    ``sampling``; audio decode steps take zero frames. Returns ``(tokens (B,
     steps), cache)``, plus the per-token logits rows ``(B, steps, V)`` when
     ``return_logits``, plus each chosen token's raw-distribution logprob
     ``(B, steps)`` when ``return_logprobs``, plus ``(values, ids)``
@@ -61,6 +62,13 @@ def generate(params, cfg: ModelConfig, prompts: dict, max_cache: int,
                                   router_bias=router_bias)
     do_sample = sampling is not None
     spec = sampling if do_sample else null_spec(b, device)
+    step = {}
+    if cfg.family == "audio":
+        # decode steps see zero frames, as in the JAX package's loop and the
+        # engine's tick
+        step["frame"] = torch.zeros((b, 1, cfg.frontend_dim),
+                                    dtype=prompts["frames"].dtype,
+                                    device=device)
     tok = model.sample_tokens(logits, spec, 0) if do_sample else greedy(logits)
     use_penalties = use_penalties and do_sample
     counts = torch.zeros((b, cfg.vocab_size), dtype=torch.int32, device=device)
@@ -70,8 +78,9 @@ def generate(params, cfg: ModelConfig, prompts: dict, max_cache: int,
         if t:
             # emitted token t comes out of decode step t-1 (the prefill
             # seeds token 0), the fold_in index both backends agree on
-            logits, cache = model.decode_step(params, cfg, {"token": tok},
-                                              cache, attn_backend=attn_backend,
+            logits, cache = model.decode_step(params, cfg,
+                                              {"token": tok, **step}, cache,
+                                              attn_backend=attn_backend,
                                               router_bias=router_bias)
             tok = model.sample_tokens(
                 logits, spec, t, counts=counts if use_penalties else None) \

@@ -29,6 +29,15 @@ paged attention through ``EngineConfig.attn_backend``: ``"kernel"`` (the
 CUDA kernels on the card) or ``"torch"`` (the gather oracle); the same switch
 picks the MoE expert products (the grouped-matmul kernel or einsums).
 
+Families: attention stacks (dense, MoE) chunk and share prompt prefixes;
+SSM stacks chunk a prompt when it and the chunk align to ``ssm_chunk`` (the
+slot's recurrent state threads through its cache row between chunks); the
+VLM (prefix-LM over a patch prefix that counts toward the prompt's pages)
+and the RG-LRU hybrid prefill one-shot. Recurrent and ring-buffer caches
+are slot rows: a tick advances only the active slots' rows, retirement
+wipes them. Audio lanes decode with zero frames, as the one-shot oracle
+does.
+
 MoE (``router_bias``, the (num_layers, E) immune router bias): the decode
 tick runs every slot, occupied or not, and expert capacity is contended
 across whatever shares the batch, so decode, draft and verify run at a
@@ -36,7 +45,7 @@ dropless capacity (``cfg_decode``): a garbage lane never displaces a real
 request's token. One-shot prefill keeps the configured capacity — it is a
 batch-of-1 call, the same as one-shot ``generate``'s. Chunked prefill is
 exact against one-shot prefill only when dropless, so an MoE engine chunks
-only at ``capacity_factor * k >= E``.
+only at ``capacity_factor * k >= E`` (``Engine._chunkable``).
 
 Self-speculative decoding (``EngineConfig.spec_decode = k > 0``): while every
 resident is greedy with no penalties and no logprobs, a tick drafts ``k``
@@ -151,14 +160,19 @@ def _seed_token(logits, spec, do_sample: bool) -> torch.Tensor:
 
 
 def _decode_tick(params, cfg: ModelConfig, pool, last, active, table,
-                 router_bias, spec, steps_done, pen_counts, attn_backend: str,
-                 do_sample: bool, return_logits: bool, return_logprobs: bool,
-                 use_penalties: bool, return_topk: int):
+                 router_bias, frames, spec, steps_done, pen_counts,
+                 attn_backend: str, do_sample: bool, return_logits: bool,
+                 return_logprobs: bool, use_penalties: bool,
+                 return_topk: int):
     """One token for every slot (occupied or not). Inactive slots advance
-    neither position nor last token; their paged writes land on the null
-    page. Sampling lanes fold each slot's emitted-token count into its key.
+    neither position, nor last token, nor slot-row state; their paged writes
+    land on the null page. ``frames`` is audio's (S, 1, Fd) decode input.
+    Sampling lanes fold each slot's emitted-token count into its key.
     ``ok`` flags lanes whose logits are all finite (the NaN/Inf guard)."""
-    logits, new_pool = model.decode_step(params, cfg, {"token": last}, pool,
+    batch = {"token": last}
+    if cfg.family == "audio":
+        batch["frame"] = frames
+    logits, new_pool = model.decode_step(params, cfg, batch, pool,
                                          table=table, active=active,
                                          attn_backend=attn_backend,
                                          router_bias=router_bias)
@@ -292,31 +306,36 @@ class Engine:
             share_prefix=ecfg.prefix_sharing, pin_pages=ecfg.pin_pages,
             num_classes=ecfg.num_classes, pin_decay=ecfg.mem_decay,
             require_reservation=(ecfg.admission_mode == "reserve"))
-        # chunked prefill only where it is exact against one-shot prefill:
-        # the dense stack always, MoE only at dropless expert capacity
-        # (capacity is per call, so a finite capacity factor can drop other
-        # tokens per chunking): cf * k >= E. The JAX package decides per
-        # request; for these two families the answer is the same for every
-        # request (its per-request cases are the SSM and VLM families).
-        self._chunked = ecfg.prefill_chunk > 0 and (
-            not cfg.num_experts
-            or cfg.capacity_factor * cfg.experts_per_token >= cfg.num_experts)
-        # prefix sharing needs K/V to be a pure function of the token prefix
-        # (true for both stacks) and a chunked tail prefill to land only the
-        # unshared suffix
-        self._share_ok = ecfg.prefix_sharing and self._chunked
-        self._multi_prefill = ecfg.prefill_streams > 1
-        # self-speculative decoding needs one segment for the truncated-depth
-        # draft slice (both stacks have one); the per-tick gate in step()
+        self._kinds = set(transformer.layer_kinds(cfg))
+        attention_only = self._kinds <= set(transformer.PAGED_KINDS)
+        frontend = bool(cfg.frontend_dim or cfg.frontend_tokens)
+        # prefix sharing needs a position's K/V to be a pure function of the
+        # token prefix and a chunked tail prefill to land only the unshared
+        # suffix: text-only attention / dropless-MoE stacks (per request:
+        # _sharable)
+        self._share_ok = (ecfg.prefix_sharing and ecfg.prefill_chunk > 0
+                          and attention_only and not frontend)
+        # batched prefill streams need lanes with no slot-row state and no
+        # per-position frontend inputs
+        self._multi_prefill = (ecfg.prefill_streams > 1 and attention_only
+                               and not frontend)
+        # self-speculative decoding needs the verify path (attention stacks,
+        # no frontend inputs, no slot-row state) and one segment for the
+        # truncated-depth draft slice; the per-tick gate in step()
         # additionally requires every resident greedy with no penalties or
         # logprobs
-        self._spec_ok = (ecfg.spec_decode > 0
-                         and len(transformer.segments(cfg)) == 1)
+        self._spec_ok = (ecfg.spec_decode > 0 and attention_only
+                         and len(transformer.segments(cfg)) == 1
+                         and not frontend)
         dev = self.device
         self.pool = model.init_slot_cache_paged(cfg, s, ecfg.max_cache,
                                                 num_pages, ecfg.page_size, dev)
         self.last = torch.zeros((s, 1), dtype=torch.int32, device=dev)
         self.active = torch.zeros((s,), dtype=torch.bool, device=dev)
+        # audio: every lane decodes with a zero frame (the one-shot oracle's)
+        self.frames = (torch.zeros((s, 1, cfg.frontend_dim),
+                                   dtype=torch.float32, device=dev)
+                       if cfg.family == "audio" else None)
         self.slots: list[Optional[ServeRequest]] = [None] * s
         self.jobs: deque[_PrefillJob] = deque()
         self.pos_host = np.zeros(s, np.int64)      # per-slot next write index
@@ -398,7 +417,9 @@ class Engine:
             # rejected whole; the parent itself never holds a slot
             members = groups.expand(req)
             probe = members[0]
-            if len(probe.tokens) + probe.max_new_tokens > self.ecfg.max_cache \
+            need = len(probe.tokens) + self.cfg.frontend_tokens \
+                + probe.max_new_tokens
+            if need > self.ecfg.max_cache \
                     or self._need_pages(probe) > self.alloc.usable_pages:
                 req.finish_reason = "rejected"
                 self.rejected.append(req)
@@ -409,7 +430,7 @@ class Engine:
                 m.submit_time = req.submit_time
                 self.queue.append(m)
             return
-        need = len(req.tokens) + req.max_new_tokens
+        need = len(req.tokens) + self.cfg.frontend_tokens + req.max_new_tokens
         if need > self.ecfg.max_cache \
                 or self._need_pages(req) > self.alloc.usable_pages:
             req.finish_reason = "rejected"
@@ -469,11 +490,37 @@ class Engine:
                                  [float(x) for x in tv[0].cpu()]))
 
     # -- paging --------------------------------------------------------------
+    def _chunkable(self, req: ServeRequest) -> bool:
+        """Chunked prefill only where it is exact against one-shot prefill:
+        attention stacks always; MoE only at dropless expert capacity
+        (capacity is per call, so a finite capacity factor can drop other
+        tokens per chunking): cf * k >= E; SSM when the prompt and the chunk
+        align to ``ssm_chunk`` (the state resume keeps the scan's op order);
+        the VLM (prefix-LM over the patch prefix) and RG-LRU hybrids (a split
+        scan regroups the rounding) prefill one-shot."""
+        c = self.ecfg.prefill_chunk
+        if not c or self.cfg.frontend_tokens:        # the VLM's prefix
+            return False
+        kinds = self._kinds
+        if "moe" in kinds and self.cfg.capacity_factor \
+                * self.cfg.experts_per_token < self.cfg.num_experts:
+            return False
+        if kinds <= set(transformer.PAGED_KINDS):
+            return True
+        if kinds == {"ssm"}:
+            return len(req.tokens) % c == 0 and c % self.cfg.ssm_chunk == 0
+        return False
+
+    def _sharable(self, req: ServeRequest) -> bool:
+        """Prefix sharing needs both: K/V a pure function of the token prefix
+        (``_share_ok``) and a chunked tail prefill (``_chunkable``)."""
+        return self._share_ok and self._chunkable(req)
+
     def _match(self, req: ServeRequest):
         """Prefix-index match for ``req``, capped so the padded chunk tail
         stays inside ``max_cache``. Returns ``(full_hits, partial,
         shared_len)``."""
-        if not self._share_ok:
+        if not self._sharable(req):
             return [], None, 0
         full, partial = self.alloc.match_prefix(req.tokens)
         plen = len(req.tokens)
@@ -493,10 +540,11 @@ class Engine:
 
     def _need_pages(self, req: ServeRequest, shared_len: int = 0) -> int:
         """Worst-case pages this request can ever hold: prompt (+ chunk
-        padding of the unshared tail) plus its full decode budget."""
-        plen = len(req.tokens)
+        padding of the unshared tail) plus its full decode budget; a VLM's
+        patch prefix counts toward the prompt."""
+        plen = len(req.tokens) + self.cfg.frontend_tokens
         cover = plen + req.max_new_tokens
-        if self._chunked:
+        if self._chunkable(req):
             c = self.ecfg.prefill_chunk
             cover = max(cover, shared_len + -(-(plen - shared_len) // c) * c)
         return pages_for(cover, self.ecfg.page_size)
@@ -511,9 +559,9 @@ class Engine:
         request re-enters here unchanged: it re-prefills its prompt and
         replays its recorded tokens through decode."""
         full, partial, sl = self._match(req)
-        plen = len(req.tokens)
+        plen = len(req.tokens) + self.cfg.frontend_tokens
         c, ps = self.ecfg.prefill_chunk, self.ecfg.page_size
-        chunkable = self._chunked
+        chunkable = self._chunkable(req)
         # no-write last page: the only write into the shared page is the
         # final prompt token, bitwise what the page already holds
         nowrite = (partial is not None and chunkable
@@ -534,7 +582,7 @@ class Engine:
             self.alloc.adopt(slot, full, rclass=req.rclass)
         if self.ecfg.admission_mode == "reserve":
             self.alloc.reserve(slot, charge)
-        if self._share_ok:
+        if self._sharable(req):
             self.sharable_prompt_pages += pages_for(plen, ps)
             self.shared_pages_adopted += len(full) + (1 if partial else 0)
             self.prefill_positions_skipped += sl
@@ -560,7 +608,7 @@ class Engine:
             total = sl + -(-(plen - sl) // c) * c
             self.jobs.append(_PrefillJob(req=req, slot=slot, p0=sl,
                                          total=total, length=plen,
-                                         share=self._share_ok))
+                                         share=self._sharable(req)))
             return True
         logits, one = _prefill_one(self.params, self.cfg,
                                    req.prompts(self.device),
@@ -611,8 +659,9 @@ class Engine:
         return best
 
     def _free_slot(self, slot: int) -> None:
-        """Return ``slot`` to the pool: release its pages (refcount--) and
-        reset its decode state and sampling lane to the free-slot argmax row."""
+        """Return ``slot`` to the pool: release its pages (refcount--), wipe
+        its slot-row (recurrent / ring) state and reset its decode state and
+        sampling lane to the free-slot argmax row."""
         self.slots[slot] = None
         model.release_slot_cache_paged(self.pool, self.cfg, slot)
         self.active[slot] = False
@@ -731,7 +780,7 @@ class Engine:
         each paying a full prefill. The wait holds only while a lower lane is
         still queued or mid-prefill: otherwise nobody will register the chain
         and the lane admits now."""
-        if req.group < 0 or req.lane == 0 or not self._share_ok:
+        if req.group < 0 or req.lane == 0 or not self._sharable(req):
             return False
         if req.group in self._group_ready:
             return False
@@ -849,10 +898,16 @@ class Engine:
         toks[:len(seg)] = seg
         job.req.prefill_tokens += len(seg)
         self.prefill_tokens += len(seg)
+        chunk = {"tokens": self._dev(toks)[None]}
+        if self.cfg.family == "audio":
+            fr = np.zeros((c, self.cfg.frontend_dim), np.float32)
+            fseg = job.req.frames[job.p0:min(end, len(job.req.frames))]
+            fr[:len(fseg)] = fseg
+            chunk["frames"] = self._dev(fr)[None]
         last_idx = min(max(job.length - 1 - job.p0, 0), c - 1)
         logits, self.pool = model.prefill_chunk(
-            self.params, self.cfg, {"tokens": self._dev(toks)[None]},
-            self.pool, self._table_row(job.slot), job.p0, last_idx,
+            self.params, self.cfg, chunk, self.pool,
+            self._table_row(job.slot), job.p0, last_idx, slot=job.slot,
             attn_backend=self.ecfg.attn_backend, router_bias=self.router_bias)
         self.chunked_prefill_chunks += 1
         job.p0 = end
@@ -944,8 +999,9 @@ class Engine:
         pen = self._dev(self.tok_counts) if use_penalties else None
         nxt, self.last, self.pool, ok, logits, lps, topk = _decode_tick(
             self.params, self.cfg_decode, self.pool, self.last, self.active,
-            self._dev(self.alloc.table()), self.router_bias, spec, counts, pen,
-            attn_backend=self.ecfg.attn_backend, do_sample=do_sample,
+            self._dev(self.alloc.table()), self.router_bias, self.frames, spec,
+            counts, pen, attn_backend=self.ecfg.attn_backend,
+            do_sample=do_sample,
             return_logits=self.ecfg.capture_logits, return_logprobs=want_lp,
             use_penalties=use_penalties, return_topk=want_k)
         nxt_host = nxt[:, 0].cpu().numpy()

@@ -70,7 +70,8 @@ def expand(req: ServeRequest) -> List[ServeRequest]:
     return [ServeRequest(rid=member_rid(req.rid, lane), tokens=req.tokens,
                          params=member_params(req.params, lane),
                          rclass=req.rclass, arrival=req.arrival,
-                         deadline=req.deadline, group=req.rid, lane=lane,
+                         deadline=req.deadline, patches=req.patches,
+                         frames=req.frames, group=req.rid, lane=lane,
                          group_size=gs)
             for lane in range(gs)]
 

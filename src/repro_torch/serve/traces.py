@@ -6,7 +6,8 @@ They emit ``ServeRequest``s for ``Engine.submit``/``run``/``stream``; every
 trace takes the sampling knobs (``temperature``/``top_p``/``top_k``/
 ``sample_seed``) and derives per-request seeds as ``sample_seed + rid``, so a
 sampled trace replays token-identically. With the same arguments each trace
-draws exactly the JAX package's prompts (same numpy generator, same order).
+draws exactly the JAX package's prompts and modality inputs (same numpy
+generator, same order).
 """
 from __future__ import annotations
 
@@ -16,6 +17,20 @@ import numpy as np
 
 from ..configs.base import ModelConfig
 from .api import SamplingParams, ServeRequest
+
+
+def attach_modality_inputs(req: ServeRequest, cfg: ModelConfig,
+                           rng) -> ServeRequest:
+    """Give a request the frontend inputs its family needs (random stand-ins
+    for the stub frontends): a VLM's ``frontend_tokens`` patches, audio's
+    one frame per prompt token."""
+    if cfg.family == "vlm":
+        req.patches = rng.standard_normal(
+            (cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    if cfg.family == "audio":
+        req.frames = rng.standard_normal(
+            (len(req.tokens), cfg.frontend_dim)).astype(np.float32)
+    return req
 
 
 def _params(max_new_tokens: int, temperature: float, top_p: float, top_k: int,
@@ -59,7 +74,7 @@ def synthetic_trace(cfg: ModelConfig, num_requests: int = 40, seed: int = 0,
             rclass=rclass,
             arrival=burst * burst_every + int(rng.integers(0, 3)),
         )
-        reqs.append(req)
+        reqs.append(attach_modality_inputs(req, cfg, rng))
     return reqs
 
 
@@ -91,7 +106,7 @@ def contention_trace(cfg: ModelConfig, num_requests: int = 24,
             rclass=n_light if hog else rid % n_light,
             arrival=rid * arrival_every,
         )
-        reqs.append(req)
+        reqs.append(attach_modality_inputs(req, cfg, rng))
     return reqs
 
 
@@ -126,7 +141,7 @@ def shared_prefix_trace(cfg: ModelConfig, num_requests: int = 32,
             rclass=rid % num_prefixes,
             arrival=rid * arrival_every,
         )
-        reqs.append(req)
+        reqs.append(attach_modality_inputs(req, cfg, rng))
     return reqs
 
 
@@ -155,10 +170,11 @@ def agentic_trace(cfg: ModelConfig, sessions: int = 3, turns: int = 4,
                     size=int(grow_lens[(t + s) % len(grow_lens)])
                 ).astype(np.int32)
                 prompts[s] = np.concatenate([prompts[s], ext])
-            reqs.append(ServeRequest(
+            req = ServeRequest(
                 rid=rid, tokens=prompts[s].copy(),
                 params=_params(decode_lens[rid % len(decode_lens)],
                                temperature, top_p, top_k, sample_seed, rid),
-                rclass=s % 3, arrival=t * turn_gap + 2 * s))
+                rclass=s % 3, arrival=t * turn_gap + 2 * s)
+            reqs.append(attach_modality_inputs(req, cfg, rng))
             rid += 1
     return reqs

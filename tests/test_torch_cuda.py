@@ -96,7 +96,9 @@ def _run_counted(fn, args, path):
 
 
 @pytest.mark.parametrize("b,h,hk,d", [(3, 4, 4, 64), (8, 15, 5, 64),
-                                      (2, 8, 1, 128), (2, 4, 2, 16)])
+                                      (2, 8, 1, 128), (2, 4, 2, 16),
+                                      (2, 8, 1, 256), (2, 16, 16, 256),
+                                      (2, 64, 8, 112)])
 @pytest.mark.parametrize("page", [8, 16])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 5e-2)])
@@ -105,7 +107,7 @@ def test_paged_kernel_matches_plain(card, b, h, hk, d, page, dtype, tol):
     under the body ``kernel_path`` names."""
     args = _paged_inputs(b + page, b, h, hk, d, page, 6, dtype, card)
     out = _run_counted(paged_attention, args,
-                       paged_pkg.kernel_path(dtype))
+                       paged_pkg.kernel_path(dtype, head_dim=d))
     ref = paged_attention_ref(*args)
     assert (out.float() - ref.float()).abs().max().item() <= tol
     assert _row_rel_err(out, ref) <= ROW_TOL[dtype]
@@ -141,7 +143,8 @@ def _verify_inputs(seed, b, sq, h, hk, d, page, maxp, dtype, device,
 
 
 @pytest.mark.parametrize("b,h,hk,d", [(3, 4, 4, 64), (8, 15, 5, 64),
-                                      (2, 8, 1, 128)])
+                                      (2, 8, 1, 128), (2, 8, 1, 256),
+                                      (2, 16, 16, 256), (2, 64, 8, 112)])
 @pytest.mark.parametrize("sq", [1, 2, 5, 7])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 5e-2)])
@@ -150,7 +153,7 @@ def test_verify_kernel_matches_plain(card, b, h, hk, d, sq, dtype, tol):
     under the body ``kernel_path`` names."""
     args = _verify_inputs(b * 10 + sq, b, sq, h, hk, d, 16, 6, dtype, card)
     out = _run_counted(paged_attention_verify, args,
-                       paged_pkg.kernel_path(dtype))
+                       paged_pkg.kernel_path(dtype, head_dim=d))
     ref = paged_attention_verify_ref(*args)
     assert (out.float() - ref.float()).abs().max().item() <= tol
     assert _row_rel_err(out, ref) <= ROW_TOL[dtype]
@@ -190,7 +193,7 @@ def test_paged_split_edges(card, maxp, grp, d, dtype):
                                            hk * grp, hk, d, page, maxp,
                                            dtype, card, lengths)
     out = _run_counted(paged_attention, (q, kp, vp, table, lens),
-                       paged_pkg.kernel_path(dtype))
+                       paged_pkg.kernel_path(dtype, head_dim=d))
     ref = paged_attention_ref(q, kp, vp, table, lens)
     assert (out.float() - ref.float()).abs().max().item() <= PAGED_TOL[dtype]
     assert _row_rel_err(out, ref) <= ROW_TOL[dtype]
@@ -218,7 +221,7 @@ def test_verify_split_edges(card, maxp, grp, sq, d, dtype):
                                          hk * grp, hk, d, page, maxp, dtype,
                                          card, pos)
     out = _run_counted(paged_attention_verify, (q, kp, vp, table, p),
-                       paged_pkg.kernel_path(dtype))
+                       paged_pkg.kernel_path(dtype, head_dim=d))
     ref = paged_attention_verify_ref(q, kp, vp, table, p)
     assert (out.float() - ref.float()).abs().max().item() <= PAGED_TOL[dtype]
     assert _row_rel_err(out, ref) <= ROW_TOL[dtype]
@@ -244,19 +247,19 @@ def test_paged_misaligned_bf16_takes_cuda_core(card, which, sq):
         args = list(_paged_inputs(4, 4, 8, 1, 64, 16, 32, torch.bfloat16,
                                   card))
         fn, ref_fn = paged_attention, paged_attention_ref
-    assert paged_pkg.kernel_path(torch.bfloat16) == "mma"
+    assert paged_pkg.kernel_path(torch.bfloat16, 64) == "mma"
     if which == "q":
         args[0] = _misaligned(args[0])
     else:
         args[1], args[2] = _misaligned(args[1]), _misaligned(args[2])
-    assert paged_pkg.kernel_path(torch.bfloat16, False) == "cuda_core"
+    assert paged_pkg.kernel_path(torch.bfloat16, 64, False) == "cuda_core"
     out = _run_counted(fn, args, "cuda_core")
     ref = ref_fn(*args)
     assert (out.float() - ref.float()).abs().max().item() <= 5e-2
     assert _row_rel_err(out, ref) <= ROW_TOL[torch.bfloat16]
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", flash_pkg.ops.HEAD_DIMS)
 @pytest.mark.parametrize("s", [1, 17, 64, 65, 128, 383, 1000])
 @pytest.mark.parametrize("b,hk,grp", [(1, 2, 1), (1, 2, 3), (2, 2, 1),
                                       (2, 2, 3), (1, 5, 3)])
@@ -281,7 +284,7 @@ def test_flash_kernel_matches_plain(card, d, s, b, hk, grp, causal, dtype,
     out = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == n0 + 1
-    path = flash_pkg.kernel_path(dtype)
+    path = flash_pkg.kernel_path(dtype, head_dim=d)
     assert flash_attention.launches_by_path[path] == p0[path] + 1
     ref = attention_ref(q, k, v, causal=causal)
     assert (out.float() - ref.float()).abs().max().item() <= tol
@@ -348,7 +351,7 @@ def test_kernel_paths_by_dtype_and_shape(card):
              (_misaligned(q.bfloat16()), kv.bfloat16(), "cuda_core")]
     for qq, kk, want in cases:
         aligned = qq.data_ptr() % 16 == 0
-        assert flash_pkg.kernel_path(qq.dtype, aligned) == want
+        assert flash_pkg.kernel_path(qq.dtype, 64, aligned) == want
         p0 = dict(flash_attention.launches_by_path)
         out = flash_attention(qq, kk, kk)
         torch.cuda.synchronize()

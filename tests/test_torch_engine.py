@@ -271,7 +271,8 @@ class TestMoE:
         eng = engine.Engine(tp, cfg, engine.EngineConfig(prefill_chunk=8),
                             device="cpu",
                             router_bias=_moe_bias(cfg, False))
-        assert not eng._chunked and not eng._share_ok
+        probe = api.ServeRequest(rid=0, tokens=np.zeros(16, np.int32))
+        assert not eng._chunkable(probe) and not eng._sharable(probe)
         assert eng.cfg_decode.capacity_factor == cfg.num_experts
         assert eng.router_bias.dtype == torch.float32
 

@@ -35,6 +35,7 @@ from repro_torch.kernels import flash_attention as flash_pkg
 from repro_torch.kernels import grid_step as grid_pkg
 from repro_torch.kernels import moe_gmm as gmm_pkg
 from repro_torch.kernels import paged_attention as paged_pkg
+from repro_torch.kernels._build import MMA_HEAD_DIMS
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.grid_step import (grid_step, grid_step_planes,
                                            grid_step_planes_ref,
@@ -79,6 +80,8 @@ def _t(*arrays):
     (2, 8, 2, 64),      # GQA 4:1
     (2, 15, 5, 64),     # GQA 3:1 (smollm-360m's ratio)
     (2, 8, 1, 128),     # MQA
+    (2, 8, 1, 256),     # paligemma-3b's MQA at D = 256
+    (2, 16, 2, 112),    # kimi-k2's D = 112, GQA 8:1
 ])
 @pytest.mark.parametrize("page,maxp", [(8, 4), (16, 3)])
 def test_paged_plain_matches_jax(b, h, hk, d, page, maxp):
@@ -141,6 +144,8 @@ def verify_fixture(seed, b, sq, h, hk, d, page, maxp):
     (3, 4, 4, 32),      # MHA
     (2, 15, 5, 64),     # GQA 3:1 (smollm-360m's ratio)
     (2, 8, 1, 128),     # MQA
+    (2, 8, 1, 256),     # paligemma-3b's MQA at D = 256
+    (2, 16, 2, 112),    # kimi-k2's D = 112
 ])
 @pytest.mark.parametrize("sq", [1, 3, 5])
 def test_verify_plain_matches_jax(b, h, hk, d, sq):
@@ -327,6 +332,8 @@ def test_split_merge_model_is_the_verify_reference(sq, kind):
     (2, 4, 2, 256, 64),     # GQA, whole 128-blocks
     (1, 15, 5, 128, 64),    # smollm-360m width
     (1, 8, 1, 384, 128),    # MQA, 3 x 128 blocks
+    (1, 8, 1, 256, 256),    # paligemma-3b's heads at D = 256
+    (1, 8, 2, 128, 112),    # D = 112 (kimi-k2)
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_plain_matches_jax_kernel(b, h, hk, s, d, causal):
@@ -438,7 +445,7 @@ class TestWrappers:
         (torch.float32, True, "cuda_core"),
         (torch.float32, False, "cuda_core")])
     def test_flash_path_is_a_function_of_dtype(self, dtype, aligned, want):
-        assert flash_pkg.kernel_path(dtype, aligned) == want
+        assert flash_pkg.kernel_path(dtype, 64, aligned) == want
         assert want in flash_pkg.ops.PATHS
 
     @pytest.mark.parametrize("dtype,aligned,want", [
@@ -447,8 +454,22 @@ class TestWrappers:
         (torch.float32, False, "cuda_core")])
     def test_paged_path_is_a_function_of_dtype(self, dtype, aligned, want):
         """Decode and verify, any rows: one rule for both entries."""
-        assert paged_pkg.kernel_path(dtype, aligned) == want
+        assert paged_pkg.kernel_path(dtype, 64, aligned) == want
         assert want in paged_pkg.ops.PATHS
+
+    @pytest.mark.parametrize("d", [16, 32, 64, 112, 128, 256])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_paths_by_head_dim(self, d, dtype):
+        """Every head dim the configs use is taken; bf16 runs on the tensor
+        cores at ``MMA_HEAD_DIMS`` and on CUDA cores at the others, fp32 on
+        CUDA cores at all of them — one rule for the paged entries and
+        flash."""
+        assert d in paged_pkg.ops.HEAD_DIMS and d in flash_pkg.ops.HEAD_DIMS
+        want = "mma" if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS \
+            else "cuda_core"
+        for pkg in (paged_pkg, flash_pkg):
+            assert pkg.kernel_path(dtype, d) == want
+            assert pkg.kernel_path(dtype, d, aligned=False) == "cuda_core"
 
     @pytest.mark.parametrize("b,hk,maxp,page,want", [
         (8, 5, 96, 16, (12, 8)),     # smollm decode: 480 CTAs

@@ -115,13 +115,17 @@ class TestConfigs:
                     assert tuple(ours[k].shape) == tuple(ref[k].shape)
                     assert ours[k].dtype == str(ref[k].dtype)
 
-    @pytest.mark.parametrize("arch,slice_", [("mamba2-130m", 5),
-                                             ("recurrentgemma-9b", 5),
-                                             ("paligemma-3b", 5)])
-    def test_other_families_name_their_slice(self, arch, slice_):
-        cfg = configs.get_config(arch).smoke()
-        with pytest.raises(NotImplementedError, match=f"slice {slice_}"):
-            model.init_params(cfg, torch.Generator(), "cpu")
+    @pytest.mark.parametrize("arch", sorted(jconfigs.ARCHS))
+    def test_full_config_param_count_matches_jax(self, arch):
+        """Every architecture at its published size, built on the meta
+        device (no allocation): exactly the JAX package's parameter count,
+        taken abstractly with ``jax.eval_shape``."""
+        abs_params = jax.eval_shape(lambda: jmodel.init_params(
+            jax.random.PRNGKey(0), jconfigs.get_config(arch)))
+        want = sum(int(x.size) for x in jax.tree.leaves(abs_params))
+        ours = model.Model(configs.get_config(arch), None,
+                           torch.device("meta"))
+        assert model.param_count(ours) == want
 
 
 class TestLogits:
@@ -288,6 +292,28 @@ class TestAttentionPaths:
         full = jlayers._sdpa(*map(jnp.asarray, (q, k, v)),
                              jlayers.causal_mask(48, 48), jcfg)
         _close(ours, full)
+
+    @pytest.mark.parametrize("s,window,plen", [(50, None, None),
+                                               (50, 12, None),
+                                               (50, None, 20),
+                                               (61, 16, 9)])
+    def test_sdpa_chunked_window_and_prefix_match_jax(self, pair, s, window,
+                                                      plen):
+        """Ragged chunks (16 q, 8 kv rows), sliding windows and prefix-LM
+        prefixes: the JAX package's full masked ``_sdpa``."""
+        jcfg, cfg, _, _ = pair
+        rng = np.random.default_rng(s)
+        q = rng.standard_normal((2, s, 4, 16)).astype(np.float32)
+        k = rng.standard_normal((2, s, 2, 16)).astype(np.float32)
+        v = rng.standard_normal((2, s, 2, 16)).astype(np.float32)
+        ours = layers._sdpa_chunked(*map(torch.as_tensor, (q, k, v)), cfg,
+                                    window, plen, q_chunk=16, kv_chunk=8)
+        ref = jlayers._sdpa(*map(jnp.asarray, (q, k, v)),
+                            jlayers.causal_mask(s, s, window, plen), jcfg)
+        _close(ours, ref)
+        assert torch.equal(layers.causal_mask(s, s, window, plen),
+                           torch.as_tensor(np.array(
+                               jlayers.causal_mask(s, s, window, plen))))
 
     def test_unknown_backend_rejected(self, pair):
         with pytest.raises(ValueError, match="backend"):
