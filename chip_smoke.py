@@ -71,46 +71,46 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    smoke-size fp32 engine (smollm-360m, and granite-moe-3b-a800m with a
    seeded nonzero router bias) must also emit exactly its one-shot
    ``generate`` tokens, with logits within 1e-3.
-4. Speculative decoding: full-width smollm-360m (bf16, ``--seed`` weights)
-   made draft-friendly at depth 8 serves a 12-request ``agentic_trace``
+4. Speculative decoding: full-width smollm-360m cut to 16 layers
+   (``SPEC_LAYERS``; bf16, ``--seed`` weights) made draft-friendly at depth
+   8 serves a 12-request ``agentic_trace``
    (4 sessions x 3 turns, 32 / 64 new tokens, greedy) on 8 slots with
    chunked prefill (16) and prefix sharing, once with ``spec_decode=4,
    spec_draft_layers=8`` and once without, both on the kernel backend.
    Every request must finish with its budget, spec ticks must run, the
-   verify kernel must have launched 32 x spec ticks and the decode kernel
-   32 x plain ticks + 8 x 4 x spec ticks, each on its predicted body (the
+   verify kernel must have launched 16 x spec ticks and the decode kernel
+   16 x plain ticks + 8 x 4 x spec ticks, each on its predicted body (the
    tensor cores), and the two runs' streams must agree by the rule of
    phase 3 (bf16 rtol = atol = 1e-1; a divergence only where the non-spec
    run's top-2 margin is below that tolerance).
-5. Slot groups: at full width, two parents on one 200-token prompt — one
-   ``n=2``, one ``best_of=3``, temperature 0.8, seeded — with chunked prefill
-   and prefix sharing. Each parent must assemble with its lanes in the
-   reference's rank order, shared prompt pages must be adopted, and each
-   lane must agree (same rule) with the same member served alone.
-   ``torch.profiler`` traces ten spec ticks and ten plain ticks with all
-   eight slots of the spec trace busy (one-shot prefill, 128 new tokens).
-6. MoE serving: granite-moe-3b-a800m at its full published config (32
-   layers, d_model 1536, 24/8 heads, 40 experts top-8, expert d_ff 512,
-   vocab 49,155, capacity factor 1.25, bf16; random weights from
-   ``--seed``; zero router bias) serves 12 requests of ``synthetic_trace``
-   (prompts 100 / 250 / 400, 32 new tokens, two seeded lanes at temperature
-   0.8) on 8 slots with one-shot prefill, on the kernel and the torch
-   backends. Every request must finish with its budget; the grouped matmul
-   must have launched exactly 3 x 32 x (decode ticks + prefills), paged
-   decode 32 x decode ticks and flash 32 x prefills, each kernel (here and
-   in the spec run below) every time on the body its ``kernel_path``
-   predicts. The same trace on the
-   same weights in fp32 must agree between the two backends by the rule of
-   phase 3 at 1e-3; in bf16 (where routing flips at near-tied experts move
-   the logits of any two roundings beyond the 1e-1 rule, see
-   ``MOE_BF16_SLACK``) the kernel run must be within that rule of the fp32
-   run or no farther from it than the torch run is, within 25%. It prints
-   ms per tick, decode tok/s,
-   peak memory, the mean expert load CV and the prefill drop fraction, and
-   a ``torch.profiler`` window of ten ticks. Then four greedy requests are
-   served on the same weights made draft-friendly at depth 8, with
-   ``spec_decode=4`` and without: verify runs the grouped matmul at C = 320,
-   and the streams must agree by the same rule.
+5. Slot groups: at full width (16 layers), two parents on one 200-token prompt
+   — one ``n=2``, one ``best_of=3``, temperature 0.8, seeded — with chunked
+   prefill and prefix sharing. Each parent must assemble with its lanes in the
+   reference's rank order, shared prompt pages must be adopted, and each lane
+   must agree (same rule) with the same member served alone.
+   ``torch.profiler`` traces ten spec ticks and ten plain ticks with all eight
+   slots of the spec trace busy (one-shot prefill, 128 new tokens).
+6. MoE serving: granite-moe-3b-a800m at its published widths cut to 16 layers
+   (``MOE_LAYERS``; 32 published; d_model 1536, 24/8 heads, 40 experts top-8,
+   expert d_ff 512, vocab 49,155, capacity factor 1.25, bf16; random weights
+   from ``--seed``; zero router bias) serves 12 requests of
+   ``synthetic_trace`` (prompts 100 / 250 / 400, 32 new tokens, two seeded
+   lanes at temperature 0.8) on 8 slots with one-shot prefill, on the kernel
+   and the torch backends. Every request must finish with its budget; the
+   grouped matmul must have launched exactly 3 x 16 x (decode ticks +
+   prefills), paged decode 16 x decode ticks and flash 16 x prefills, each
+   kernel (here and in the spec run below) every time on the body its
+   ``kernel_path`` predicts. The same trace on the same weights in fp32 must
+   agree between the two backends by the rule of phase 3 at 1e-3; in bf16
+   (where routing flips at near-tied experts move the logits of any two
+   roundings beyond the 1e-1 rule, see ``MOE_BF16_SLACK``) the kernel run must
+   be within that rule of the fp32 run or no farther from it than the torch
+   run is, within 25%. It prints ms per tick, decode tok/s, peak memory, the
+   mean expert load CV and the prefill drop fraction, and a ``torch.profiler``
+   window of ten ticks. Then four greedy requests are served on the same
+   weights made draft-friendly at depth 8, with ``spec_decode=4`` and without:
+   verify runs the grouped matmul at C = 320, and the streams must agree by
+   the same rule.
 
 7. The paper's VLSI extraction pipeline (``repro_torch.core.vlsi``): the
    grid-step kernel against its plain version, exactly (max error 0), at
@@ -140,40 +140,71 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    16-worker, 400-step fleet with one straggler on the card and on the CPU
    (relative 1e-6) and must beat the static assignment.
 
-8. The SSM, hybrid, VLM and audio families at their published full configs,
-   bf16, random weights from ``--seed``, 8 slots, page 16 (``FAMILY_TRAFFIC``):
-   mamba2-130m (24 layers, d_model 768, state 128, chunk 64; 8 requests,
-   prompts 128 / 256 / 100 / 200, chunked prefill 64 for the aligned
-   ones), recurrentgemma-9b (38 layers, d_model 4096, lru 4096, window
-   2048, MQA at D = 256; 6 requests, prompts 100 / 600 and one of 2,500
-   whose ring buffer wraps in prefill), paligemma-3b (18 layers, d_model
+8. The SSM, hybrid, VLM and audio families at their published configs (one cut
+   in depth, below), bf16, random weights from ``--seed``, 8 slots, page 16
+   (``FAMILY_TRAFFIC``): mamba2-130m (24 layers, d_model 768, state 128, chunk
+   64; 8 requests, prompts 128 / 256 / 100 / 200, chunked prefill 64 for the
+   aligned ones), recurrentgemma-9b (cut to 20 layers, ``FAMILY_LAYERS``: 6
+   Griffin groups and the 2-layer tail of the published 38; d_model 4096, lru
+   4096, window 2048, MQA at D = 256; 6 requests, prompts 100 / 600 and one of
+   2,500 whose ring buffer wraps in prefill), paligemma-3b (18 layers, d_model
    2048, 8 / 1 heads at D = 256, 256 patches of width 1152; 8 requests,
-   prompts 32 / 100 after the prefix) and musicgen-medium (48 layers,
-   d_model 1536, 24 / 24 heads at D = 64, frames of width 128; 8 requests,
-   prompts 100 / 383); 32 new tokens, two lanes sampled at temperature 0.8.
-   Checks: (a) every request finishes with its budget; (b) in fp32 at full
-   width (the bf16 weights upcast in place) each engine stream agrees with
-   one-shot ``generate`` by phase 3's rule at ``FP32_TOL``; (c) paligemma
-   and musicgen: the kernel backend against the torch backend, at
-   ``FP32_TOL`` in fp32 and ``BF16_TOL`` in bf16, where a miss in bf16
-   passes only if the kernel run is the closer of the two to fp32
-   arithmetic on the same weights and within ``BF16_FP32_CAP`` x
-   ``BF16_TOL`` of it (``bf16_rule``: musicgen's 48 layers put the torch
-   backend's bf16 score rounding ~2% past the rule; phase 2 holds the
-   kernels at both models' decode and prefill shapes); (d) mamba's chunked
-   prefill against one-shot in fp32: logits within 1e-4, greedy lanes
-   token-equal, a sampled lane parting only where phase 3's rule explains
-   the flip by the logit gap (``SSM_CHUNK_TOL``; each flip's seed, tokens
-   and gaps printed under ``sampled_flips``); (e) launch
-   counts: paged decode num_layers x decode ticks and flash num_layers x
-   prefills on musicgen, paged decode 18 x decode ticks at D = 256 and no
-   flash on paligemma (its prefix-LM prefill takes the torch path), no
-   kernel on mamba and recurrentgemma, every call on the body
-   ``kernel_path`` predicts; (f) a ``torch.profiler`` window of ten decode
-   ticks per model (printed, not checked).
+   prompts 32 / 100 after the prefix) and musicgen-medium (48 layers, d_model
+   1536, 24 / 24 heads at D = 64, frames of width 128; 8 requests, prompts 100
+   / 383); 32 new tokens, two lanes sampled at temperature 0.8. Checks: (a)
+   every request finishes with its budget; (b) in fp32 at full width (the bf16
+   weights upcast in place) each engine stream agrees with one-shot
+   ``generate`` by phase 3's rule at ``FP32_TOL``; (c) paligemma and musicgen:
+   the kernel backend against the torch backend, at ``FP32_TOL`` in fp32 and
+   ``BF16_TOL`` in bf16, where a miss in bf16 passes only if the kernel run is
+   the closer of the two to fp32 arithmetic on the same weights and within
+   ``BF16_FP32_CAP`` x ``BF16_TOL`` of it (``bf16_rule``: musicgen's 48 layers
+   put the torch backend's bf16 score rounding ~2% past the rule; phase 2
+   holds the kernels at both models' decode and prefill shapes); (d) mamba's
+   chunked prefill against one-shot in fp32: logits within 1e-4, greedy lanes
+   token-equal, a sampled lane parting only where phase 3's rule explains the
+   flip by the logit gap (``SSM_CHUNK_TOL``; each flip's seed, tokens and gaps
+   printed under ``sampled_flips``); (e) launch counts: paged decode
+   num_layers x decode ticks and flash num_layers x prefills on musicgen,
+   paged decode 18 x decode ticks at D = 256 and no flash on paligemma (its
+   prefix-LM prefill takes the torch path), no kernel on mamba and
+   recurrentgemma, every call on the body ``kernel_path`` predicts; (f) a
+   ``torch.profiler`` window of ten decode ticks per model (printed, not
+   checked).
 
-Phases 3-8 each set every launch count to 0 just before they drive their
-path and read the counts just after. All phases run at full depth.
+9. The serving fleet (``serve.router``, ``serve.faults``,
+   ``serve.durability``): full-width smollm-360m (bf16, ``--seed`` weights;
+   fp32 where said) in replicas of the JAX benchmark's config (2 slots,
+   page 16, chunked prefill 16, immune admission; max_cache 64 and 4 pinned
+   pages for routing and failover, 96 and 8 for durability), every replica
+   on the one card, sharing the weights. (a) Routing: 24 requests of
+   ``fleet_trace`` (3 tenants, 32-token prefixes) under rr, jsq and immune
+   at 2 replicas and immune at 1: every rid terminates, per-rid tokens are
+   equal across the four runs, the immune run takes affinity hits; a
+   profiled window of five fleet ticks. (b) Failover:
+   ``failover_fleet_trace`` at 3 replicas (a crash and a cold rejoin) plus
+   a pressure shock of 2 pages on replica 0, fault-free immune, then immune
+   and rr under the plan in bf16, and the fault-free and faulted immune
+   pair in fp32: one death detected and one rejoin, zero lost rids, every
+   completed rid's tokens equal to the fault-free run's, the device memory
+   after the rejoin less than one replica's pool above what it was before
+   the crash (the fenced replica's pool is freed). (c) Durability: the
+   durability trace (2 tenants, 64-token prefixes, 8 new tokens, hot
+   tenant 0.9), power off after the arrival horizon and restart 4 ticks
+   later under ``run_durable`` at 2 replicas, warm (snapshot every 2
+   ticks) and cold (journal only), in a temporary directory: zero lost and
+   zero duplicated rids, tokens equal to the fault-free run, pinned pages
+   restored warm, and the warm restart re-prefilling at most 0.5x the cold
+   one's tokens; seconds a snapshot, snapshot bytes, journal records and
+   fsyncs printed. Every run counts its launches from 0: paged decode once
+   a decode tick a layer of every replica (fallen ones included), flash
+   once a one-shot prefill a layer (none: every fleet prompt prefills in
+   chunks), nothing else, every bf16 call on ``mma``.
+
+Phases 3-9 each set every launch count to 0 just before they drive their
+path and read the counts just after. Phases 3 and 9 and every phase-8 model
+but recurrentgemma-9b run at full depth; phases 4-6 and recurrentgemma-9b
+at the depths above, so the whole run stays well inside 1,200 s.
 
 The second-to-last lines are one JSON object ``{"kernels": [...]}`` and the
 ``nvidia-smi`` name/power line; the last line is
@@ -1011,6 +1042,15 @@ def smoke_oneshot_parity(torch, configs, model_lib, eng_mod, api, traces,
 # ---------------------------------------------------------------------------
 SPEC_K, SPEC_DEPTH = 4, 8
 
+# Depth cuts that keep the whole run of nine phases well inside its 1,200 s
+# limit on a slower host (at full depth it took 910 s of command time on an
+# NVIDIA H100 80GB HBM3 at 700.00 W, and a host 1.6x slower was seen):
+# these earlier paths run fewer layers of their published configs, every
+# width unchanged. Phase 3 (the main path) and phase 9 run at full depth.
+SPEC_LAYERS = 16                          # phases 4-5, smollm-360m: 32
+MOE_LAYERS = 16                           # phase 6, granite-moe-3b-a800m: 32
+FAMILY_LAYERS = {"recurrentgemma-9b": 20}  # phase 8: 38 (6 groups + tail)
+
 
 def spec_trace(traces, cfg, seed: int):
     """12 agentic requests: 4 sessions x 3 turns on 256-token conversations
@@ -1295,7 +1335,8 @@ def moe_phase(torch, configs, eng_mod, traces, model_lib, api, moe_mod,
               kernel_paths: dict) -> tuple:
     """Phase 6 and the MoE spec run. Returns (report, moe_gmm launches on
     the kernel-backend serving run)."""
-    cfg = configs.get_config(MOE_ARCH)
+    cfg = dataclasses.replace(configs.get_config(MOE_ARCH),
+                              num_layers=MOE_LAYERS)
     params = model_lib.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
     bias = torch.zeros((cfg.num_layers, cfg.num_experts), device="cuda")
@@ -1524,6 +1565,8 @@ def family_phase(torch, configs, eng_mod, traces, model_lib, api, arch: str,
     against one-shot, and (c) in bf16 (``bf16_rule``)."""
     t0 = time.perf_counter()
     cfg = configs.get_config(arch)
+    if arch in FAMILY_LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=FAMILY_LAYERS[arch])
     max_cache = FAMILY_TRAFFIC[arch][2]
     backends = ("kernel", "torch") if arch in FAMILY_BOTH_BACKENDS \
         else ("kernel",)
@@ -1955,6 +1998,349 @@ def vlsi_phase(torch, counters: dict, seed: int) -> tuple:
     return report, kern
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the serving fleet (router, failover, journal, warm snapshots)
+# ---------------------------------------------------------------------------
+# the JAX benchmark's replica (benchmarks/serve_engine.py run_routing,
+# run_failover, run_durability): 2 slots, page 16, chunk 16, immune
+# admission; only the model is full width
+FLEET_REQUESTS = 24
+FLEET_TICKS = 50 * FLEET_REQUESTS        # the JAX benchmark's backstop
+
+
+def fleet_config(eng_mod, tenants: int, max_cache: int, pin_pages: int,
+                 budget: float, extra_pages: int = 0):
+    return eng_mod.EngineConfig(
+        num_slots=2, max_cache=max_cache, policy="immune",
+        num_classes=tenants, latency_budget=budget, page_size=16,
+        num_pages=2 * (max_cache // 16) + 1 + extra_pages, prefill_chunk=16,
+        pin_pages=pin_pages, attn_backend="kernel")
+
+
+def routing_trace(traces, cfg, seed: int):
+    return traces.fleet_trace(cfg, tenants=3, num_requests=FLEET_REQUESTS,
+                              prefix_len=32, seed=seed)
+
+
+def durability_trace(traces, cfg, seed: int):
+    return traces.fleet_trace(cfg, tenants=2, num_requests=FLEET_REQUESTS,
+                              prefix_len=64, suffix_lens=(4,),
+                              decode_lens=(8,), hot_frac=0.9, burst_every=2,
+                              burst_size=4, seed=seed)
+
+
+def fleet_books(router) -> dict:
+    """rid -> tokens of every completion the fleet holds."""
+    return {r.rid: list(r.out_tokens) for r in router.completed}
+
+
+def check_accounted(stats, what: str) -> None:
+    """Zero lost rids: every request ends in an accounted bucket."""
+    done = stats["completed"] + stats["shed"] + stats["rejected"] \
+        + stats["corrupted"] + stats["failed"]
+    check(done == FLEET_REQUESTS and stats["unserved"] == 0,
+          f"{what}: {done} of {FLEET_REQUESTS} rids accounted, "
+          f"{stats['unserved']} unserved")
+
+
+def check_same_tokens(got: dict, ref: dict, what: str) -> None:
+    off = [rid for rid, toks in got.items() if ref.get(rid, toks) != toks]
+    check(not off, f"{what}: rids {off} part from the reference run")
+
+
+def fleet_launch_check(cfg, counters: dict, n: dict, engines, what: str,
+                       bodies: dict) -> dict:
+    """Paged decode once a decode tick in every layer of every replica
+    (fallen ones included), flash once a one-shot prefill, nothing else,
+    every bf16 call on the body ``kernel_path`` predicts."""
+    ticks = sum(e.decode_ticks for e in engines)
+    prefills = sum(e.prefills for e in engines)
+    want = {"paged_attention": cfg.num_layers * ticks,
+            "paged_attention_verify": 0,
+            "flash_attention": cfg.num_layers * prefills, "moe_gmm": 0}
+    check(n == want and n["paged_attention"] > 0,
+          f"{what}: launches {n} != {want}")
+    if cfg.dtype == "bfloat16":
+        check_bodies(counters, n, what, bodies)
+    return {"launches": n, "paths": path_counts(counters)}
+
+
+def fleet_summary(stats, wall: float) -> dict:
+    return {"completed": stats["completed"], "shed": stats["shed"],
+            "ticks": stats["ticks"], "placements": stats["placements"],
+            "p50_latency_ticks": stats["p50_latency"],
+            "p99_latency_ticks": stats["p99_latency"],
+            "affinity_hit_rate": stats["affinity_hit_rate"],
+            "wall_s": wall, "ms_per_fleet_tick": 1e3 * wall
+            / max(stats["ticks"], 1),
+            "prefill_tokens": stats["prefill_tokens"]}
+
+
+def profile_fleet(torch, router_mod, eng_mod, params, cfg, traces, seed: int,
+                  ticks: int = 5) -> dict:
+    """Where a fleet tick's time goes: a 2-replica immune fleet on the
+    routing trace, stepped until both replicas decode, then ``ticks`` fleet
+    ticks under ``torch.profiler`` after one warm-up tick."""
+    ecfg = fleet_config(eng_mod, 3, 64, 4, 64.0)
+    rt = router_mod.Router([eng_mod.Engine(params, cfg, ecfg, device="cuda")
+                            for _ in range(2)])
+    for req in routing_trace(traces, cfg, seed):
+        rt.submit(dataclasses.replace(req, arrival=0))
+    for _ in range(4):
+        rt.step()
+    check(all(e.active_host.any() for e in rt.engines),
+          "fleet profile: a replica is idle")
+
+    def run():
+        for _ in range(ticks):
+            rt.step()
+
+    wall_ms, rows = device_rows(torch, rt.step, run)
+    busy = sum(r[0] for r in rows)
+    return {"replicas": 2, "ticks": ticks,
+            "wall_ms_per_tick": wall_ms / ticks,
+            "device_ms_per_tick": busy / ticks,
+            "idle_share": 1.0 - busy / wall_ms if busy else None,
+            "paged_decode_ms_per_tick": sum(
+                r[0] for r in rows if "paged_decode" in r[2]) / ticks,
+            "top": [{"kernel": k[:80], "ms_per_tick": ms / ticks,
+                     "calls_per_tick": n / ticks} for ms, n, k in rows[:6]]}
+
+
+def fleet_phase(torch, configs, eng_mod, traces, model_lib, router_mod,
+                faults, durability, seed: int, counters: dict,
+                kernel_paths: dict) -> tuple:
+    """Phase 9: full-width smollm-360m replicas behind the placement router.
+    (a) routing: the fleet trace under rr, jsq and immune at 2 replicas and
+    immune at 1; every rid terminates, per-rid tokens equal across the four
+    runs, the immune run takes affinity hits. (b) failover: a crash of one of
+    3 replicas with a cold rejoin and a pressure shock, detected (one death,
+    one rejoin), zero lost rids, tokens equal to the fault-free run, under
+    immune and rr in bf16 and immune in fp32; the fenced replica's pool is
+    freed. (c) durability: a power loss after the arrival horizon, restart
+    4 ticks later, 2 replicas under ``run_durable``, warm (snapshot every 2
+    ticks) and cold (journal only): zero lost and zero duplicated rids,
+    tokens equal to the fault-free run, pages restored warm, and the warm
+    restart re-prefills at most 0.5x the cold one's tokens. Every run's
+    launches counted from 0 (paged decode a decode tick a layer, flash a
+    one-shot prefill a layer, all bf16 calls on ``mma``). Returns (report,
+    paged launches, flash launches) of 9a's immune 2-replica run."""
+    import tempfile
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("smollm-360m")
+    bodies = main_bodies(torch, kernel_paths, cfg)
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    rep: dict = {"model": cfg.name, "dtype": cfg.dtype}
+
+    # -- 9a: routing ----------------------------------------------------------
+    ecfg = fleet_config(eng_mod, 3, 64, 4, 64.0)
+    routing, ref, main_n = {}, {}, None
+    for policy, n_rep in (("rr", 2), ("jsq", 2), ("immune", 2),
+                          ("immune", 1)):
+        what = f"9a {policy} x{n_rep}"
+        rt = router_mod.Router(
+            [eng_mod.Engine(params, cfg, ecfg, device="cuda")
+             for _ in range(n_rep)], router_mod.RouterConfig(policy=policy))
+        stats, wall, n = run_counted(torch, counters, lambda: rt.run(
+            routing_trace(traces, cfg, seed), max_ticks=FLEET_TICKS))
+        check_accounted(stats, what)
+        launches = fleet_launch_check(cfg, counters, n, rt.engines, what,
+                                      bodies)
+        for rid, toks in fleet_books(rt).items():
+            ref.setdefault(rid, toks)
+        check_same_tokens(fleet_books(rt), ref, what)
+        routing[f"{policy}_x{n_rep}"] = {**fleet_summary(stats, wall),
+                                         **launches}
+        if (policy, n_rep) == ("immune", 2):
+            check(stats["affinity_hits"] > 0, f"{what}: no affinity hit")
+            main_n = n
+    rep["routing"] = routing
+    rep["fleet_tick_profile"] = profile_fleet(torch, router_mod, eng_mod,
+                                              params, cfg, traces, seed)
+
+    # -- 9b: failover ---------------------------------------------------------
+    def failover(p, c, dtype: str) -> dict:
+        def trace():            # fresh requests a run: serving mutates them
+            return traces.failover_fleet_trace(
+                c, replicas=3, num_requests=FLEET_REQUESTS, tenants=3,
+                prefix_len=32, seed=seed)
+
+        spec = trace()[1] + " pressure@2+6:r0:p2"
+        crash_at = int(spec.split("crash@")[1].split(":")[0])
+        rejoin_at = int(spec.split("rejoin@")[1].split(":")[0])
+
+        def replica():
+            return eng_mod.Engine(p, c, ecfg, device="cuda")
+
+        clean = router_mod.Router([replica() for _ in range(3)])
+        s, wall, n = run_counted(torch, counters, lambda: clean.run(
+            trace()[0], max_ticks=FLEET_TICKS))
+        check_accounted(s, f"9b clean {dtype}")
+        fleet_launch_check(c, counters, n, clean.engines,
+                           f"9b clean {dtype}", bodies)
+        ref = fleet_books(clean)
+        out = {"plan": spec, "clean": fleet_summary(s, wall)}
+        del clean
+        pool_bytes = sum(t.numel() * t.element_size()
+                         for seg in replica().pool["layers"]
+                         for leaf in seg for t in leaf.values())
+        for policy in (("immune", "rr") if dtype == "bfloat16"
+                       else ("immune",)):
+            what = f"9b {policy} {dtype}"
+            mem = {}
+
+            class Probe(faults.FaultInjector):
+                """Reads the allocated device memory just before the crash
+                and just after the rejoin."""
+
+                def begin_tick(self, router):
+                    if router.tick == crash_at:
+                        torch.cuda.synchronize()
+                        mem["before_crash"] = torch.cuda.memory_allocated()
+                    super().begin_tick(router)
+                    if router.tick == rejoin_at:
+                        torch.cuda.synchronize()
+                        mem["after_rejoin"] = torch.cuda.memory_allocated()
+
+            rt = router_mod.Router(
+                [replica() for _ in range(3)],
+                router_mod.RouterConfig(policy=policy),
+                injector=Probe(faults.FaultPlan.parse(spec),
+                               engine_factory=replica))
+            s, wall, n = run_counted(torch, counters, lambda: rt.run(
+                trace()[0], max_ticks=FLEET_TICKS))
+            check(s["deaths"] == 1 and s["rejoins"] == 1
+                  and s["replaced_requests"] > 0,
+                  f"{what}: deaths {s['deaths']}, rejoins {s['rejoins']}, "
+                  f"re-placed {s['replaced_requests']}")
+            check(s["faults"]["pressure_shocks"] == 1,
+                  f"{what}: the pressure shock did not fire")
+            check_accounted(s, what)
+            check_same_tokens(fleet_books(rt), ref, what)
+            launches = fleet_launch_check(c, counters, n,
+                                          rt.engines + rt.fallen, what,
+                                          bodies)
+            grown = mem["after_rejoin"] - mem["before_crash"]
+            check(grown < pool_bytes and rt.fallen[0].pool is None,
+                  f"{what}: {grown} bytes more after the rejoin than before "
+                  f"the crash (one replica's pool: {pool_bytes}); the fenced "
+                  f"replica's pool was not released")
+            replayed = [r for r in rt.completed if r.rid in rt.replaced_rids]
+            out[policy] = {**fleet_summary(s, wall), **launches,
+                           "deaths": s["deaths"], "rejoins": s["rejoins"],
+                           "replaced_requests": s["replaced_requests"],
+                           "retries": s["retries"], "failed": s["failed"],
+                           "recovery_ticks": s["recovery_ticks"],
+                           "replayed_tokens": s["replayed_tokens"],
+                           "replayed_requests_completed": len(replayed),
+                           "pages_seized": s["faults"]["pages_seized"],
+                           "mem_before_crash": mem["before_crash"],
+                           "mem_after_rejoin": mem["after_rejoin"],
+                           "pool_bytes": pool_bytes}
+            del rt
+        return out
+
+    rep["failover"] = {"bfloat16": failover(params, cfg, "bfloat16")}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = model_lib.init_params(
+        cfg32, torch.Generator(device="cuda").manual_seed(seed),
+        device="cuda")
+    rep["failover"]["float32"] = failover(params32, cfg32, "float32")
+    del params32
+
+    # -- 9c: durability -------------------------------------------------------
+    dcfg = fleet_config(eng_mod, 2, 96, 8, 50.0 * FLEET_REQUESTS,
+                        extra_pages=8)
+    clean = router_mod.Router([eng_mod.Engine(params, cfg, dcfg,
+                                              device="cuda")
+                               for _ in range(2)])
+    s, wall, n = run_counted(torch, counters, lambda: clean.run(
+        durability_trace(traces, cfg, seed), max_ticks=FLEET_TICKS))
+    check_accounted(s, "9c clean")
+    ref = fleet_books(clean)
+    horizon = max(r.arrival for r in durability_trace(traces, cfg, seed))
+    off = max(horizon + 2, (3 * s["ticks"]) // 5)
+    spec = f"poweroff@{off} restart@{off + 4}"
+    dur = {"plan": spec, "clean": fleet_summary(s, wall)}
+    del clean
+    snap_s: list = []
+
+    class TimedRouter(router_mod.Router):
+        def _save_snapshot(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._save_snapshot()
+            snap_s.append(time.perf_counter() - t0)
+
+    prefill = {}
+    with tempfile.TemporaryDirectory(prefix="fleet_durability_") as tmp:
+        for warm in (True, False):
+            what = f"9c {'warm' if warm else 'cold'}"
+            d = os.path.join(tmp, "warm" if warm else "cold")
+
+            def make():
+                return TimedRouter(
+                    [eng_mod.Engine(params, cfg, dcfg, device="cuda")
+                     for _ in range(2)],
+                    router_mod.RouterConfig(policy="immune"),
+                    injector=faults.FaultInjector(
+                        faults.FaultPlan.parse(spec)))
+
+            snap_s.clear()
+            (rt, s), wall, n = run_counted(
+                torch, counters, lambda: durability.run_durable(
+                    make, durability_trace(traces, cfg, seed),
+                    os.path.join(d, "journal.wal"),
+                    snapshot_dir=os.path.join(d, "snap") if warm else None,
+                    snapshot_every=2, max_ticks=FLEET_TICKS))
+            check(s["restarts"] == 1, f"{what}: {s['restarts']} restarts")
+            check_accounted(s, what)
+            rids = [r.rid for r in rt.completed]
+            check(len(rids) == len(set(rids)),
+                  f"{what}: duplicated completions")
+            check_same_tokens(fleet_books(rt), ref, what)
+            check(n["paged_attention"] > 0
+                  and n["paged_attention"] % cfg.num_layers == 0
+                  and n["paged_attention_verify"] == n["moe_gmm"] == 0,
+                  f"{what}: launches {n}")
+            check_bodies(counters, n, what, bodies)
+            d_stats = s["durability"]
+            prefill[warm] = sum(e.prefill_tokens for e in rt.engines)
+            snap_dir = os.path.join(d, "snap")
+            snap_bytes = None
+            if warm:
+                check(d_stats["recovered_pinned_pages"] > 0,
+                      f"{what}: no pinned page restored warm")
+                newest = sorted(os.listdir(snap_dir))[-1]
+                snap_bytes = sum(
+                    os.path.getsize(os.path.join(snap_dir, newest, f))
+                    for f in os.listdir(os.path.join(snap_dir, newest)))
+            j = d_stats["journal"]
+            dur["warm" if warm else "cold"] = {
+                **fleet_summary(s, wall), "launches": n,
+                "recovered_finished": d_stats["recovered_finished"],
+                "recovered_open": d_stats["recovered_open"],
+                "recovered_pinned_pages": d_stats["recovered_pinned_pages"],
+                "post_restart_prefill_tokens": prefill[warm],
+                "snapshots": len(snap_s),
+                "s_per_snapshot": (sum(snap_s) / len(snap_s)
+                                   if snap_s else None),
+                "snapshot_bytes": snap_bytes,
+                "journal_records": j["records"], "journal_fsyncs": j["syncs"],
+                "journal_bytes": j["synced_bytes"]}
+            del rt
+    ratio = prefill[True] / max(prefill[False], 1)
+    check(ratio <= 0.5, f"9c: the warm restart re-prefilled {prefill[True]} "
+          f"tokens, {ratio:.2f}x the cold restart's {prefill[False]} "
+          f"(bar 0.5x)")
+    dur["warm_over_cold_prefill"] = ratio
+    rep["durability"] = dur
+    rep["phase_s"] = time.perf_counter() - t_phase
+    del params
+    return rep, main_n
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="on-card smoke of the port")
     ap.add_argument("--seed", type=int, default=0)
@@ -1985,8 +2371,9 @@ def main() -> int:
         HEAD_DIMS as flash_pkg_dims
     from repro_torch.models import model as model_lib
     from repro_torch.models import moe as moe_mod
-    from repro_torch.serve import api, groups, traces
+    from repro_torch.serve import api, durability, faults, groups, traces
     from repro_torch.serve import engine as eng_mod
+    from repro_torch.serve import router as router_mod
     from repro_torch.serve import spec as spec_mod
     counters = {"paged_attention": paged_attention,
                 "paged_attention_verify": paged_attention_verify,
@@ -1997,6 +2384,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    phase_start = {"1": time.perf_counter()}
     # -- phase 1: device and build --------------------------------------------
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2012,6 +2400,7 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f}s "
           f"({_build.library_path().name})")
 
+    phase_start["2"] = time.perf_counter()
     # -- phase 2: kernels -----------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     paged_cases = check_paged(torch, gen, paged_attention, paged_attention_ref,
@@ -2055,6 +2444,7 @@ def main() -> int:
                    "device_ms": verify_t["device_ms"],
                    "dense_sdpa": verify_t["dense_sdpa"]}}))
 
+    phase_start["3"] = time.perf_counter()
     # -- phase 3: the engine on smollm-360m -----------------------------------
     params = model_lib.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(args.seed),
@@ -2145,36 +2535,40 @@ def main() -> int:
             smoke_oneshot_parity(torch, configs, model_lib, eng_mod, api,
                                  traces, args.seed, arch)))
 
+    phase_start["4-5"] = time.perf_counter()
     # -- phases 4 and 5: speculative decoding and slot groups -----------------
+    cfg45 = dataclasses.replace(cfg, num_layers=SPEC_LAYERS)
     params = model_lib.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(args.seed),
+        cfg45, torch.Generator(device="cuda").manual_seed(args.seed),
         device="cuda")
-    drafty = spec_mod.make_draft_friendly(params, cfg, SPEC_DEPTH)
+    drafty = spec_mod.make_draft_friendly(params, cfg45, SPEC_DEPTH)
     spec_rep, verify_n = spec_phase(torch, eng_mod, traces, model_lib, api,
-                                    drafty, cfg, args.seed, counters,
+                                    drafty, cfg45, args.seed, counters,
                                     kernel_paths)
     print("spec decode: " + json.dumps(spec_rep))
     long = [dataclasses.replace(r, params=dataclasses.replace(
-        r.params, max_new_tokens=128)) for r in spec_trace(traces, cfg,
+        r.params, max_new_tokens=128)) for r in spec_trace(traces, cfg45,
                                                            args.seed)]
     for spec in (True, False):
         ecfg = spec_config(eng_mod, spec, capture_logits=False)._replace(
             prefill_chunk=0)
-        prof = profile_decode(torch, eng_mod, drafty, cfg, long, ecfg)
+        prof = profile_decode(torch, eng_mod, drafty, cfg45, long, ecfg)
         print(f"{'spec' if spec else 'plain'} tick profile (spec trace): "
               + json.dumps(prof))
     del drafty
     group_rep = group_phase(torch, eng_mod, groups, model_lib, api, params,
-                            cfg, args.seed, counters, kernel_paths)
+                            cfg45, args.seed, counters, kernel_paths)
     print("slot groups: " + json.dumps(group_rep))
     del params
 
+    phase_start["6"] = time.perf_counter()
     # -- phase 6: MoE serving on granite-moe-3b-a800m -------------------------
     moe_rep, gmm_n = moe_phase(torch, configs, eng_mod, traces, model_lib, api,
                                moe_mod, router, spec_mod, args.seed, counters,
                                kernel_paths)
     print("moe serving: " + json.dumps(moe_rep))
 
+    phase_start["7"] = time.perf_counter()
     # -- phase 7: the paper's VLSI extraction pipeline ------------------------
     t0 = time.perf_counter()
     vlsi_rep, grid_k = vlsi_phase(torch, {**counters, "grid_step": grid_step},
@@ -2182,6 +2576,7 @@ def main() -> int:
     vlsi_rep["phase_s"] = time.perf_counter() - t0
     print("vlsi extraction: " + json.dumps(vlsi_rep))
 
+    phase_start["8"] = time.perf_counter()
     # -- phase 8: the SSM, hybrid, VLM and audio families ---------------------
     family_rep = {}
     for arch in FAMILY_ARCHS:
@@ -2190,6 +2585,14 @@ def main() -> int:
                                         counters, kernel_paths)
         print(f"{arch}: " + json.dumps(family_rep[arch]))
     phase8 = {arch: r["kernel"]["launches"] for arch, r in family_rep.items()}
+
+    phase_start["9"] = time.perf_counter()
+    # -- phase 9: the serving fleet -------------------------------------------
+    fleet_rep, phase9 = fleet_phase(torch, configs, eng_mod, traces,
+                                    model_lib, router_mod, faults,
+                                    durability, args.seed, counters,
+                                    kernel_paths)
+    print("serving fleet: " + json.dumps(fleet_rep))
 
     kernels = [
         {"name": "paged_attention", "route": "cuda",
@@ -2204,7 +2607,8 @@ def main() -> int:
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "device_ms")},
          "phase8_launches": {a: n["paged_attention"]
-                             for a, n in phase8.items()}},
+                             for a, n in phase8.items()},
+         "phase9_launches": phase9["paged_attention"]},
         {"name": "paged_attention_verify", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:118",
@@ -2230,7 +2634,8 @@ def main() -> int:
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "device_ms", "library_device_ms")},
          "phase8_launches": {a: n["flash_attention"]
-                             for a, n in phase8.items()}},
+                             for a, n in phase8.items()},
+         "phase9_launches": phase9["flash_attention"]},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
          "replaces": "src/repro/kernels/moe_gmm/kernel.py:45",
@@ -2245,6 +2650,11 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/grid_step.cu",
          "replaces": "src/repro/kernels/grid_step/kernel.py:59", **grid_k},
     ]
+    names = list(phase_start) + ["end"]
+    phase_start["end"] = time.perf_counter()
+    print("phase seconds: " + json.dumps(
+        {n: phase_start[m] - phase_start[n]
+         for n, m in zip(names, names[1:])}))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -1,42 +1,65 @@
-"""Serving entry point of the port: the continuous-batching engine on a
-synthetic open-loop arrival trace, admission governed by the immune
-primitives, per-token ``RequestOutput`` deltas streamed as they are emitted.
+"""Serving entry point of the port: one-shot batched prefill + decode, the
+continuous-batching engine on a synthetic open-loop trace, or a fleet of
+engine replicas behind the placement router.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --smoke [--device cpu] --batch 4 --steps 32
+
+``--stream`` serves a synthetic arrival trace through the engine, admission
+governed by the immune primitives, per-token ``RequestOutput`` deltas
+streamed as they are emitted:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --smoke --stream --requests 40 --slots 4 [--device cpu] \
         [--policy fifo] [--attn-backend torch] \
         [--temperature 0.8 --top-p 0.9 --sample-seed 7] \
-        [--trace shared-prefix|contention|agentic] [--no-prefix-sharing] \
-        [--pin-pages 8] [--admission reserve] [--prefill-streams 2] \
-        [--spec-decode 4 --spec-draft-layers 1]
+        [--trace shared-prefix|returning-tenant|contention|agentic|fleet] \
+        [--no-prefix-sharing] [--pin-pages 8] [--admission reserve] \
+        [--prefill-streams 2] [--spec-decode 4 --spec-draft-layers 1]
+
+``--replicas N`` (with ``--stream``) serves the trace through the placement
+router (``serve.router``): N replicas, one global queue, per-tick placement
+under ``--router immune|rr|jsq``. ``--faults "crash@8:r1 rejoin@24:r1"``
+scripts tick-exact replica faults (``serve.faults`` grammar); ``--trace
+fleet-faults`` sizes a crash + rejoin plan to the trace. ``--journal PATH``
+arms the write-ahead journal (with ``--snapshot-dir`` / ``--snapshot-every``,
+warm snapshots); a plan with ``poweroff@tick`` (``--trace fleet-poweroff``
+sizes one) drives ``serve.durability.run_durable``, which recovers a fresh
+fleet from the journal and the snapshot:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --smoke --device cpu --stream --trace fleet-faults --replicas 3 \
+        --router immune --faults "crash@8:r1 rejoin@24:r1"
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --smoke --device cpu --stream --trace fleet-poweroff --replicas 2 \
+        --journal serve.wal --snapshot-dir serve-snap --snapshot-every 4
 
 Runs on ``cuda`` unless ``--device cpu`` is given; the weights are random
-from ``--seed``. Every family serves: an MoE arch (``--arch
-granite-moe-3b-a800m``) with a zero router bias of shape (num_layers, E), as
-the JAX package does without ``--restore``; the SSM (``mamba2-130m``), the
-RG-LRU hybrid (``recurrentgemma-9b``), the VLM (``paligemma-3b``) and audio
-(``musicgen-medium``) with the random patches / frames the traces attach
-(``traces.attach_modality_inputs``). The one-shot batch path,
-``--replicas``, ``--faults``, ``--journal`` and ``--restore`` arrive with
-later port slices and are rejected here.
+from ``--seed``. Every family serves: an MoE arch with a zero router bias of
+shape (num_layers, E), as the JAX package does without ``--restore``; the
+SSM, hybrid, VLM and audio families with the random patches / frames the
+traces attach. ``--restore`` arrives with the training slice and is
+rejected here.
 """
 from __future__ import annotations
 
 import argparse
 import math
+import os
+import tempfile
 import time
 
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, prng
 from repro_torch.models import model as model_lib
+from repro_torch.serve import decode, durability
 from repro_torch.serve import engine as eng_mod
+from repro_torch.serve import router as rt_mod
 from repro_torch.serve import traces
+from repro_torch.serve.faults import FaultInjector, FaultPlan
 
-LATER = {"replicas": "slice 6 (the fleet router)",
-         "faults": "slice 6 (fault injection)",
-         "journal": "slice 6 (durability)",
-         "restore": "slice 7 (checkpoints)"}
+LATER = {"restore": "slice 7 (checkpoints)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,9 +69,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="one-shot path: prompts in the batch")
     ap.add_argument("--stream", action="store_true",
                     help="continuous-batching engine on a synthetic trace "
-                         "(the only mode this port serves so far)")
+                         "instead of a one-shot fixed batch")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--policy", default="immune", choices=("immune", "fifo"))
@@ -71,13 +96,43 @@ def build_parser() -> argparse.ArgumentParser:
                          "(plain versions on CPU tensors) or the torch "
                          "oracle (gather attention, expert einsums)")
     ap.add_argument("--trace", default="bursty",
-                    choices=("bursty", "shared-prefix", "contention",
-                             "agentic"),
+                    choices=("bursty", "shared-prefix", "returning-tenant",
+                             "contention", "agentic", "fleet", "fleet-faults",
+                             "fleet-poweroff"),
                     help="synthetic arrival trace: bursty heterogeneous, "
-                         "system-prompt traffic (prefix sharing), page-pool "
-                         "contention (preemption), or agentic multi-turn "
-                         "re-submission with grown prompts (prefix sharing "
-                         "and speculative decoding)")
+                         "system-prompt traffic (prefix sharing), "
+                         "returning-tenant bursts (the pinned prefix cache), "
+                         "page-pool contention (preemption), agentic "
+                         "multi-turn re-submission (prefix sharing and "
+                         "speculative decoding), multi-tenant fleet traffic "
+                         "(the placement router), the fleet trace with a "
+                         "sized crash + rejoin plan (failover), or with a "
+                         "sized poweroff + restart (journal and snapshot "
+                         "recovery)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help=">1: serve through the placement router "
+                         "(serve.router): N replicas, one global queue")
+    ap.add_argument("--router", default="immune",
+                    choices=rt_mod.POLICIES,
+                    help="placement policy: immune (prefix affinity -> "
+                         "anergy draining -> least remembered cost), "
+                         "round-robin, or join-shortest-queue")
+    ap.add_argument("--faults", default=None, metavar="PLAN",
+                    help="tick-exact replica faults for a --replicas > 1 "
+                         "run, e.g. 'crash@8:r1 rejoin@24:r1 "
+                         "slow@4+10:r0:x3' (serve.faults grammar)")
+    ap.add_argument("--journal", default=None, metavar="PATH",
+                    help="write-ahead request journal (serve.durability); "
+                         "needed by a plan with poweroff@tick (a temporary "
+                         "one is made when missing)")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="warm-snapshot directory (pinned prefix cache with "
+                         "its K/V, immune memories, router books)")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="warm-snapshot cadence in fleet ticks (0 = off)")
+    ap.add_argument("--sync-every", type=int, default=1,
+                    help="journal group commit: one fsync per this many "
+                         "ticks (submits fsync at once)")
     ap.add_argument("--pin-pages", type=int, default=0)
     ap.add_argument("--admission", default="preempt",
                     choices=("preempt", "reserve"))
@@ -102,18 +157,179 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def make_trace(ap, args, cfg) -> list:
+    """The ``--trace`` requests; a fleet trace with faults sets
+    ``args.faults`` to its sized plan when none was given."""
+    sampling = dict(temperature=args.temperature, top_p=args.top_p,
+                    top_k=args.top_k, sample_seed=args.sample_seed)
+    prefix = max(args.prompt_len, 2 * args.page_size)
+    if args.trace == "shared-prefix":
+        return traces.shared_prefix_trace(
+            cfg, num_requests=args.requests, prefix_len=prefix,
+            decode_lens=(args.steps // 2, args.steps), **sampling)
+    if args.trace == "returning-tenant":
+        return traces.returning_tenant_trace(
+            cfg, prefix_len=prefix, bursts=max(2, args.requests // 12),
+            decode_lens=(args.steps // 2,), **sampling)
+    if args.trace == "contention":
+        return traces.contention_trace(
+            cfg, num_requests=args.requests, hog_prompt=2 * args.page_size,
+            hog_tokens=args.steps, **sampling)
+    if args.trace == "agentic":
+        return traces.agentic_trace(
+            cfg, sessions=max(1, args.requests // 4), turns=4,
+            base_prompt=prefix, decode_lens=(args.steps // 2, args.steps),
+            **sampling)
+    if args.trace.startswith("fleet"):
+        fleet_kw = dict(num_requests=args.requests, prefix_len=prefix,
+                        decode_lens=(args.steps // 2, args.steps), **sampling)
+        if args.trace == "fleet":
+            return traces.fleet_trace(cfg, **fleet_kw)
+        if args.replicas < 2:
+            ap.error(f"--trace {args.trace} needs --replicas > 1 (its faults "
+                     f"fire through the router's fault injector)")
+        if args.trace == "fleet-faults":
+            trace, spec = traces.failover_fleet_trace(
+                cfg, replicas=args.replicas, crash_replica=args.replicas - 1,
+                **fleet_kw)
+        else:
+            trace, spec = traces.poweroff_fleet_trace(cfg, **fleet_kw)
+        args.faults = args.faults or spec
+        return trace
+    return traces.synthetic_trace(cfg, num_requests=args.requests,
+                                  heavy_tokens=args.steps + 8, **sampling)
+
+
+def serve_batch(args, params, cfg, bias) -> torch.Tensor:
+    """The one-shot path: ``--batch`` prompts of ``--prompt-len`` tokens
+    (drawn as the JAX package draws them, ``jax.random.randint`` under key
+    1), ``--steps`` greedy tokens each through ``decode.generate``."""
+    key = torch.as_tensor(prng.PRNGKey(1).astype("int64"))
+    prompts = {"tokens": prng.randint(key, (args.batch, args.prompt_len), 0,
+                                      cfg.vocab_size).long().to(args.device)}
+    gen = torch.Generator().manual_seed(1)
+    if cfg.family == "vlm":
+        prompts["patches"] = torch.randn(
+            (args.batch, cfg.frontend_tokens, cfg.frontend_dim),
+            generator=gen).to(args.device)
+    if cfg.family == "audio":
+        prompts["frames"] = torch.randn(
+            (args.batch, args.prompt_len, cfg.frontend_dim),
+            generator=gen).to(args.device)
+    t0 = time.perf_counter()
+    toks, _ = decode.generate(params, cfg, prompts,
+                              max_cache=args.prompt_len + args.steps + 8,
+                              steps=args.steps, attn_backend=args.attn_backend,
+                              router_bias=bias)
+    toks = toks.cpu()
+    dt = time.perf_counter() - t0
+    print(f"{args.batch} x {args.steps} tokens in {dt:.1f}s; "
+          f"{args.batch * args.steps / dt:.1f} tok/s")
+    for i, row in enumerate(toks):
+        print(f"  seq {i}: {row.tolist()}")
+    return toks
+
+
+def serve_fleet(args, params, cfg, ecfg, bias, trace) -> dict:
+    """The ``--replicas`` drive: a router over fresh replicas, under the
+    fault plan and the journal when asked; prints the fleet summary."""
+    def make_engine():
+        return eng_mod.Engine(params, cfg, ecfg, device=args.device,
+                              router_bias=bias)
+
+    def make_router():
+        injector = FaultInjector(FaultPlan.parse(args.faults),
+                                 engine_factory=make_engine) \
+            if args.faults else None
+        return rt_mod.Router([make_engine() for _ in range(args.replicas)],
+                             rt_mod.RouterConfig(policy=args.router),
+                             injector=injector)
+
+    poweroff = bool(args.faults) and "poweroff" in args.faults
+    if poweroff and not args.journal:
+        args.journal = os.path.join(tempfile.mkdtemp(prefix="serve_wal_"),
+                                    "journal.wal")
+        print(f"poweroff plan with no --journal: journaling to "
+              f"{args.journal}")
+    if args.faults:
+        print(f"fault plan: {args.faults}")
+    t0 = time.perf_counter()
+    if poweroff:
+        _, stats = durability.run_durable(
+            make_router, trace, args.journal, snapshot_dir=args.snapshot_dir,
+            snapshot_every=args.snapshot_every, sync_every=args.sync_every,
+            max_ticks=50 * args.requests)
+    else:
+        router = make_router()
+        if args.journal:
+            router.attach_durability(
+                durability.RequestJournal(args.journal,
+                                          sync_every=args.sync_every),
+                snapshot_dir=args.snapshot_dir,
+                snapshot_every=args.snapshot_every)
+        stats = router.run(trace, max_ticks=50 * args.requests)
+        if router.journal is not None:
+            router.journal.close()
+    if args.device == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"[{args.router} x {args.replicas} on {args.device}] "
+          f"{stats['completed']} completed / {stats['shed']} shed / "
+          f"{stats['rejected']} rejected of {args.requests} requests in "
+          f"{stats['ticks']} ticks ({dt:.1f}s wall)")
+    print(f"  throughput {stats['throughput']:.2f} tok/tick | p50 "
+          f"{stats['p50_latency']:.0f} / p99 {stats['p99_latency']:.0f} "
+          f"ticks | goodput {stats['goodput']:.2f}")
+    print(f"  placements {stats['placements']} (imbalance "
+          f"{stats['placement_imbalance']:.2f}) | affinity "
+          f"{stats['affinity_hits']}/{stats['affinity_checks']} hits "
+          f"({stats['affinity_tokens']} resident tokens) | "
+          f"{stats['drain_skips']} drain skips / "
+          f"{stats['drain_overflow']} overflow")
+    print(f"  fleet: {stats['prefill_tokens']} prefill tokens | "
+          f"{stats['preemptions']} preemptions | "
+          f"{stats['replayed_tokens']} tokens replayed | "
+          f"{stats['pinned_pages_adopted']} pinned pages adopted")
+    for i, p in enumerate(stats["per_replica"]):
+        print(f"  replica {i}: {p['completed']} completed | "
+              f"p99 {p['p99_latency']:.0f} ticks | pages hw "
+              f"{p['pages_hw']}/{p['pages_budget']} | pinned-hit rate "
+              f"{p['pinned_hit_rate']:.2f}")
+    if args.faults:
+        print(f"  failover: {stats['deaths']} deaths / "
+              f"{stats['rejoins']} rejoins, "
+              f"{stats['replaced_requests']} re-placed "
+              f"({stats['retries']} retries, {stats['failed']} "
+              f"failed), recovery {stats['recovery_ticks']} ticks, "
+              f"health {stats['health']}")
+    if args.journal:
+        d = stats["durability"]
+        j = d["journal"] or {}
+        print(f"  durability: {stats.get('restarts', 0)} restarts | "
+              f"journal {j.get('records', 0)} records / "
+              f"{j.get('syncs', 0)} fsyncs "
+              f"(group commit {j.get('sync_every', 1)}) | "
+              f"recovered {d['recovered_finished']} finished + "
+              f"{d['recovered_open']} replayed | "
+              f"{d['recovered_pinned_pages']} pinned pages warm | "
+              f"{d['snapshots']} snapshots")
+    return stats
+
+
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     for name, where in LATER.items():
         if getattr(args, name) is not None:
             ap.error(f"--{name} is not ported yet; it arrives with {where}")
-    if not args.stream:
-        ap.error("only --stream (the continuous-batching engine) is ported "
-                 "so far; the one-shot batch path arrives with slice 6")
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda but no CUDA device is visible "
                  "(pass --device cpu to run the plain versions)")
+    if args.replicas > 1 and not args.stream:
+        ap.error("--replicas needs --stream (the fleet serves a trace)")
+    if args.faults and args.replicas < 2:
+        ap.error("--faults needs --stream --replicas > 1 (faults target "
+                 "replicas behind the router)")
 
     cfg = configs.get_config(args.arch)
     if args.smoke:
@@ -122,6 +338,9 @@ def main(argv=None):
     params = model_lib.init_params(cfg, gen, device=args.device)
     bias = (torch.zeros((cfg.num_layers, cfg.num_experts))
             if cfg.num_experts else None)
+    if not args.stream:
+        return serve_batch(args, params, cfg, bias)
+
     lcm = math.lcm(args.page_size, args.prefill_chunk or 1)
     # a VLM's patch prefix occupies cache positions ahead of the prompt
     raw = args.prompt_len + cfg.frontend_tokens + args.steps + 48
@@ -134,25 +353,9 @@ def main(argv=None):
         prefill_streams=args.prefill_streams, pin_pages=args.pin_pages,
         admission_mode=args.admission, spec_decode=args.spec_decode,
         spec_draft_layers=args.spec_draft_layers)
-    sampling = dict(temperature=args.temperature, top_p=args.top_p,
-                    top_k=args.top_k, sample_seed=args.sample_seed)
-    if args.trace == "shared-prefix":
-        trace = traces.shared_prefix_trace(
-            cfg, num_requests=args.requests,
-            prefix_len=max(args.prompt_len, 2 * args.page_size),
-            decode_lens=(args.steps // 2, args.steps), **sampling)
-    elif args.trace == "contention":
-        trace = traces.contention_trace(
-            cfg, num_requests=args.requests, hog_prompt=2 * args.page_size,
-            hog_tokens=args.steps, **sampling)
-    elif args.trace == "agentic":
-        trace = traces.agentic_trace(
-            cfg, sessions=max(1, args.requests // 4), turns=4,
-            base_prompt=max(args.prompt_len, 2 * args.page_size),
-            decode_lens=(args.steps // 2, args.steps), **sampling)
-    else:
-        trace = traces.synthetic_trace(cfg, num_requests=args.requests,
-                                       heavy_tokens=args.steps + 8, **sampling)
+    trace = make_trace(ap, args, cfg)
+    if args.replicas > 1:
+        return serve_fleet(args, params, cfg, ecfg, bias, trace)
 
     eng = eng_mod.Engine(params, cfg, ecfg, device=args.device,
                          router_bias=bias)

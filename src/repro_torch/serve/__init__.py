@@ -1,2 +1,3 @@
 """Continuous-batching serving under immune admission (PyTorch port)."""
-from . import api, decode, engine, paging, traces  # noqa: F401
+from . import (api, decode, durability, engine, faults, paging,  # noqa: F401
+               router, traces)

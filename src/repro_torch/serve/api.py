@@ -148,13 +148,15 @@ class ServeRequest:
     out_logprobs: list = field(default_factory=list)
     out_topk: list = field(default_factory=list)      # per-token (ids, lps)
     finish_reason: Optional[str] = None    # "stop" | "length" | "rejected" |
-    #                                        "shed" | "corrupted"
+    #                                        "shed" | "failed" | "corrupted"
     admit_tick: int = -1
     finish_tick: int = -1
     slot: int = -1
     submit_time: float = -1.0              # wall clock, perf_counter seconds
     finish_time: float = -1.0
     preemptions: int = 0
+    retries: int = 0                       # re-placements on a survivor after
+    #                                        a replica death (router failover)
     replayed_tokens: int = 0               # recorded tokens re-derived after
     #                                        preemption
     requeue_ticks: int = 0

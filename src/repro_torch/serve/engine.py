@@ -70,8 +70,10 @@ cost, not instantaneous load:
                             without co-stimulation are shed; IL-2 revives
                             them when queue pressure drops.
 
-Not ported yet: the fleet hooks — evacuation, warm-state export/import and
-placement telemetry (slice 6).
+Fleet hooks (``serve.router``): placement telemetry read on the host
+(``class_costs``, ``anergy_levels``, ``prefix_affinity``, ``occupancy``),
+``evacuate`` for failover, ``drop_device_state`` for a fenced replica, and
+the warm-state snapshot (``export_warm_state`` / ``import_warm_state``).
 """
 from __future__ import annotations
 
@@ -238,6 +240,21 @@ class ImmuneAdmission:
     def throttled(self) -> bool:
         return float(self.reg_state.response) > self.ecfg.reg_threshold
 
+    def degrade(self, classes, severity: float):
+        """Fleet capacity loss as an immune stress signal (graceful
+        degradation): antigen without co-stimulation for ``classes``, scaled
+        by ``severity`` (the router's share of dead replicas), drives them
+        toward shedding on this replica; once capacity returns the stimulus
+        stops and IL-2 revives them, as with ordinary anergy."""
+        c = self.ecfg.num_classes
+        stim = np.zeros(c, np.float32)
+        for k in classes:
+            if 0 <= k < c:
+                stim[k] = min(max(float(severity), 0.0), 1.0)
+        self.anergy = self.gate.step(self.anergy, stimulus=stim,
+                                     costimulus=np.zeros(c, np.float32),
+                                     il2=0.0)
+
     def end_tick(self, admitted: int, queue_len: int,
                  queued_demand: np.ndarray, predicted_cost: np.ndarray):
         """Advance the regulator and anergy gate one tick. Anergy stimulus is
@@ -257,6 +274,29 @@ class ImmuneAdmission:
             il2=il2)
         self._blown[:] = 0.0
         self._ok[:] = 0.0
+
+    # -- durability ----------------------------------------------------------
+    def export_state(self) -> dict:
+        """JSON-able learned state: the per-class cost EMA, the regulator
+        populations, the anergy levels and the tick-local SLO counters (the
+        JAX package's format). Configuration comes from the EngineConfig."""
+        return {"memory": self.memory.value.tolist(),
+                "regulator": [x.tolist() for x in self.reg_state],
+                "anergy": [x.tolist() for x in self.anergy],
+                "blown": self._blown.tolist(), "ok": self._ok.tolist()}
+
+    def import_state(self, d: dict) -> None:
+        """Restore :meth:`export_state` output: the memories resume warm."""
+        def put(state, vals):
+            return type(state)(*[
+                torch.as_tensor(np.asarray(v, np.float32)).reshape(x.shape)
+                for x, v in zip(state, vals)])
+        self.memory = self.memory._replace(
+            value=torch.as_tensor(np.asarray(d["memory"], np.float32)))
+        self.reg_state = put(self.reg_state, d["regulator"])
+        self.anergy = put(self.anergy, d["anergy"])
+        self._blown = np.asarray(d["blown"], np.float32)
+        self._ok = np.asarray(d["ok"], np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -1325,3 +1365,130 @@ class Engine:
             "decode_seconds": self.decode_seconds,
             "spec_seconds": self.spec_seconds,
         }
+
+    # -- placement telemetry (read by serve.router, all host reads) ----------
+    def class_costs(self) -> np.ndarray:
+        """Per-class remembered decode cost (the ``ImmuneMemory`` slot-tick
+        EMA): the router's load model. Zeros under FIFO (no memory)."""
+        if self.admission is None:
+            return np.zeros(self.ecfg.num_classes, np.float64)
+        return self.admission.memory.value.numpy().astype(np.float64)
+
+    def anergy_levels(self) -> np.ndarray:
+        """Per-class anergy levels; a router drains a replica for the classes
+        it holds anergic."""
+        if self.admission is None:
+            return np.zeros(self.ecfg.num_classes, np.float64)
+        return self.admission.anergy.level.numpy().astype(np.float64)
+
+    def prefix_affinity(self, req: ServeRequest) -> int:
+        """Prompt positions of ``req`` already resident in this engine's page
+        pool (live shared or pinned chains): the prefill a placement here
+        skips."""
+        return self._match(req)[2]
+
+    def pinned_chain_keys(self) -> list:
+        """Token-content keys of this engine's pinned prefix-cache pages."""
+        return self.alloc.pinned_chain_keys()
+
+    def occupancy(self) -> int:
+        """Queued + resident (incl. mid-prefill) requests: the
+        join-shortest-queue load signal."""
+        return len(self.queue) + sum(r is not None for r in self.slots)
+
+    # -- failover -------------------------------------------------------------
+    def evacuate(self) -> list:
+        """Strip every in-flight and queued request for re-placement on
+        another replica (the router calls this when it declares this replica
+        dead). The request objects carry what re-admission elsewhere needs
+        for exact recovery: the prompt and the recorded tokens, which are
+        re-prefilled and replayed. Every slot is freed, on the host and on
+        the device, so the books stay consistent; the caller fences this
+        engine. Returns residents in slot order, then the queue in order."""
+        lost = []
+        for req in self.slots:
+            if req is not None:
+                req.slot = -1
+                lost.append(req)
+        lost.extend(self.queue)
+        self.queue.clear()
+        self.jobs.clear()
+        for slot in range(self.ecfg.num_slots):
+            self._free_slot(slot)
+        return lost
+
+    def drop_device_state(self) -> None:
+        """Free a fenced replica's device memory (its K/V pool and slot
+        tensors; the weights are shared). The host books that ``stats()``
+        and the router's accounting read stay; the engine can never step
+        again."""
+        self.pool = self.last = self.active = self.frames = None
+        self._spec_cache = self._null_spec = None
+
+    # -- durability: warm-state snapshot export / import ---------------------
+    def export_warm_state(self) -> tuple[dict, list]:
+        """Snapshot this engine's learned state: the indexed prefix forest
+        (token keys and the pages' K/V) and the immune memories. Returns
+        ``(meta, kv)``: a JSON-able dict and host K/V tensors, page-major
+        then leaf-major (k then v of every paged layer, segment order),
+        ``meta["kv_per_page"]`` tensors a page, each (reps, page, Hkv, D): the
+        JAX package's layout. All exported pages are gathered with one
+        ``index_select`` a paged cache leaf and copied to the host once a
+        leaf. In-flight request state is not here: the journal owns it.
+        Reads device state, never writes it."""
+        forest = self.alloc.export_pinned()
+        pages = [e.pop("page") for e in forest]
+        leaves: list[torch.Tensor] = []
+        if pages:
+            idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+
+            def gather(kind, full_d):
+                if kind in transformer.PAGED_KINDS:
+                    for name in ("k", "v"):
+                        leaves.append(full_d[name].index_select(1, idx).cpu())
+                return full_d
+
+            transformer.map_block_caches(self.cfg, gather, self.pool["layers"])
+        kv = [leaf[:, i] for i in range(len(pages)) for leaf in leaves]
+        meta = {
+            "forest": forest,
+            "kv_per_page": len(leaves),
+            "pin_memory": self.alloc.pin_memory_state().tolist(),
+            "admission": (self.admission.export_state()
+                          if self.admission is not None else None),
+        }
+        return meta, kv
+
+    def import_warm_state(self, meta: dict, kv: list) -> int:
+        """Rebuild :meth:`export_warm_state` output into this (fresh) engine:
+        pinned chains re-index under newly allocated pages, their K/V is
+        scattered back with one ``index_copy_`` a paged cache leaf (zero
+        recompute), and the immune memories resume. Returns the number of
+        pinned pages restored."""
+        if meta.get("pin_memory") is not None:
+            self.alloc.set_pin_memory_state(meta["pin_memory"])
+        if self.admission is not None and meta.get("admission"):
+            self.admission.import_state(meta["admission"])
+        placed = self.alloc.import_pinned(meta.get("forest") or [])
+        per = int(meta.get("kv_per_page") or 0)
+        if not placed or not per:
+            return len(placed)
+        pages = torch.as_tensor([p for _, p in placed], dtype=torch.long,
+                                device=self.device)
+        lane = iter(range(per))
+
+        def scatter(kind, full_d):
+            if kind in transformer.PAGED_KINDS:
+                for name in ("k", "v"):
+                    j = next(lane)
+                    src = torch.stack([torch.as_tensor(kv[i * per + j])
+                                       for i, _ in placed], dim=1)
+                    full = full_d[name]
+                    if src.dtype != full.dtype:
+                        raise ValueError(f"snapshot K/V is {src.dtype}, the "
+                                         f"pool {full.dtype}")
+                    full.index_copy_(1, pages, src.to(self.device))
+            return full_d
+
+        transformer.map_block_caches(self.cfg, scatter, self.pool["layers"])
+        return len(placed)

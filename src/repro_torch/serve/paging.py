@@ -58,8 +58,9 @@ Layout invariants (the hypothesis suite in ``tests/test_torch_paging.py`` churns
     (indexed, budget permitting, chain reachable) or freed immediately and
     dropped from the prefix index — index entries only ever point at live or
     pinned pages, and every indexed page's parent chain is live or pinned.
-  * ``free + pinned + distinct live pages == num_pages - 1`` (conservation,
-    null page excluded — a shared page counts once, which is the memory win).
+  * ``free + pinned + distinct live pages == usable_pages`` (conservation:
+    ``num_pages - 1`` less the pages a pressure shock has seized, the null
+    page excluded — a shared page counts once, which is the memory win).
   * ``available()`` counts free *and* pinned pages (pinned pages are
     reclaimable on demand) net of reservations, and never goes negative.
 
@@ -81,6 +82,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..core import immune
 
@@ -162,11 +164,15 @@ class PageAllocator:
         self.pins = 0            # refcount-zero pages retained in the cache
         self.pinned_hits = 0     # pinned pages revived by adoption
         self.evictions = 0       # pinned pages dropped (budget or pool pressure)
+        # pages withdrawn from the pool by fault injection (a pressure shock):
+        # out of _free and out of usable_pages, so conservation
+        # free + live + pinned == usable holds while capacity is shrunk
+        self._seized: list[int] = []
 
     # -- accounting ----------------------------------------------------------
     @property
     def usable_pages(self) -> int:
-        return self.num_pages - 1
+        return self.num_pages - 1 - len(self._seized)
 
     @property
     def pages_in_use(self) -> int:
@@ -176,6 +182,10 @@ class PageAllocator:
     @property
     def pages_pinned(self) -> int:
         return len(self._pinned)
+
+    @property
+    def pages_seized(self) -> int:
+        return len(self._seized)
 
     def owned(self, slot: int) -> list[int]:
         return list(self._owned[slot])
@@ -209,6 +219,93 @@ class PageAllocator:
         page consumes reclaimable capacity, so admission must net these out of
         :meth:`available` before charging a request."""
         return sum(1 for p in pages if p in self._pinned)
+
+    def pinned_chain_keys(self) -> list:
+        """Token-content keys of the pinned pages: what the persistent prefix
+        cache holds (placement telemetry for a fleet router)."""
+        return sorted(self._page_key[p][1] for p in self._pinned)
+
+    # -- durability: pinned-forest export / import ---------------------------
+    def export_pinned(self) -> list[dict]:
+        """The indexed prefix forest (pinned cache entries and live chains)
+        as a parent-first list: each entry's page token key, the index of its
+        parent in the list (-1 for a root), its class tag, LRU stamp and
+        physical ``page`` (for the caller to gather the K/V). Live chains are
+        exportable because a registered prompt page is never written again;
+        on import the whole forest lands pinned."""
+        out: list[dict] = []
+        pos: dict[int, int] = {}
+        node_of = {p: self._index[k][0] for p, k in self._page_key.items()}
+
+        def visit(p: int, parent_idx: int) -> None:
+            pos[p] = len(out)
+            out.append({"tokens": list(self._page_key[p][1]),
+                        "parent": parent_idx,
+                        "rclass": int(self._page_class[p]),
+                        "last_use": int(self._last_use[p]),
+                        "page": int(p)})
+            for kid in sorted(self._node_kids.get(node_of[p], ())):
+                visit(kid, pos[p])
+
+        for root in sorted(p for p in self._page_key
+                           if self._page_key[p][0] == 0):
+            visit(root, -1)
+        return out
+
+    def import_pinned(self, entries: list) -> list[tuple[int, int]]:
+        """Rebuild pinned chains from :meth:`export_pinned` output: pages come
+        off the free list, are indexed and pinned with their saved class tags
+        and LRU stamps, within the pin budget. Returns ``(entry_index,
+        new_page)`` pairs for the caller to scatter each entry's K/V. An entry
+        whose parent was not placed, or whose key is not one full page (the
+        only pages this allocator registers), is skipped with its subtree, so
+        imported chains are always reachable from the root."""
+        placed: list[tuple[int, int]] = []
+        if not self.share_prefix or self.pin_pages <= 0:
+            return placed
+        node_of: dict[int, int] = {}
+        page_of: dict[int, int] = {}
+        for i, e in enumerate(entries):
+            if len(self._pinned) >= self.pin_pages or not self._free:
+                break
+            parent_idx = int(e["parent"])
+            if parent_idx >= 0 and parent_idx not in page_of:
+                continue                 # orphaned subtree: skip
+            pt = tuple(int(t) for t in e["tokens"])
+            if len(pt) != self.page_size:
+                continue
+            parent = 0 if parent_idx < 0 else node_of[parent_idx]
+            hit = self._index.get((parent, pt))
+            if hit is not None:          # already resident
+                node_of[i], page_of[i] = hit
+                continue
+            page = self._free.pop()
+            node = self._next_node
+            self._next_node += 1
+            self._index[(parent, pt)] = (node, page)
+            self._children.setdefault((parent, pt[0]), set()).add(page)
+            self._node_kids.setdefault(parent, set()).add(page)
+            self._page_key[page] = (parent, pt)
+            self._page_class[page] = self._rc(int(e.get("rclass", 0)))
+            self._last_use[page] = int(e.get("last_use", 0))
+            self._clock = max(self._clock, int(e.get("last_use", 0)))
+            self._pinned.add(page)
+            self.pins += 1
+            node_of[i], page_of[i] = node, page
+            placed.append((i, page))
+        self.high_water = max(self.high_water, self.pages_in_use)
+        return placed
+
+    def pin_memory_state(self) -> np.ndarray:
+        """Host copy of the per-class prefix-value EMA (snapshot payload)."""
+        return self.pin_memory.value.numpy().copy()
+
+    def set_pin_memory_state(self, values) -> None:
+        """Restore the EMA saved by :meth:`pin_memory_state` (the decay stays
+        as configured)."""
+        self.pin_memory = self.pin_memory._replace(
+            value=torch.as_tensor(np.asarray(values, np.float32)).clone())
+        self._class_w = self.pin_memory.value.numpy()
 
     # -- prefix index --------------------------------------------------------
     @staticmethod
@@ -382,6 +479,32 @@ class PageAllocator:
                     f"{self.usable_pages} in use, {len(self._pinned)} pinned)")
             self._drop_chain(v)
         return self._free.pop()
+
+    # -- fault injection ------------------------------------------------------
+    def seize(self, npages: int) -> int:
+        """Withdraw up to ``npages`` from the pool (a pressure shock): free
+        pages first, then the coldest pinned leaves; live pages are never
+        seized. Seized pages leave ``usable_pages``, so conservation holds
+        while capacity is shrunk. Returns how many were taken."""
+        taken = 0
+        while taken < npages:
+            if not self._free:
+                v = self._coldest_evictable()
+                if v is None:
+                    break
+                self._drop_chain(v)
+            self._seized.append(self._free.pop())
+            taken += 1
+        return taken
+
+    def restore(self, npages: Optional[int] = None) -> int:
+        """Return seized pages (all, or the ``npages`` most recently seized)
+        to the free list. Returns the count restored."""
+        n = len(self._seized) if npages is None else min(npages,
+                                                         len(self._seized))
+        for _ in range(n):
+            self._free.append(self._seized.pop())
+        return n
 
     # -- lifecycle -----------------------------------------------------------
     def reserve(self, slot: int, need_pages: int) -> None:

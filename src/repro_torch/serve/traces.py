@@ -1,6 +1,6 @@
 """Synthetic open-loop arrival traces for the serving engine (PyTorch port of
-``repro/serve/traces.py``: the bursty, shared-prefix, contention and agentic
-traces).
+``repro/serve/traces.py``: the bursty, returning-tenant, contention, fleet,
+shared-prefix and agentic traces).
 
 They emit ``ServeRequest``s for ``Engine.submit``/``run``/``stream``; every
 trace takes the sampling knobs (``temperature``/``top_p``/``top_k``/
@@ -78,6 +78,45 @@ def synthetic_trace(cfg: ModelConfig, num_requests: int = 40, seed: int = 0,
     return reqs
 
 
+def returning_tenant_trace(cfg: ModelConfig, tenants: int = 2,
+                           prefix_len: int = 48, suffix_lens: tuple = (4,),
+                           burst_size: int = 3, bursts: int = 2,
+                           gap: int = 120, decode_lens: tuple = (6,),
+                           seed: int = 0, temperature: float = 0.0,
+                           top_p: float = 1.0, top_k: int = 0,
+                           sample_seed: int = 0) -> list:
+    """Returning-tenant traffic: each tenant owns a fixed system prompt and
+    sends ``bursts`` bursts of ``burst_size`` requests, with a ``gap`` between
+    bursts long enough for the engine to fully drain. Without a persistent
+    prefix cache every burst re-prefills the tenant's prefix from scratch
+    (refcounts hit zero between bursts); with pinning the second and later
+    bursts adopt the tenant's pages out of the pinned cache and prefill only
+    their suffixes. Request class = tenant id, so the pin memory learns
+    per-tenant adoption value."""
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(0, cfg.vocab_size, size=prefix_len)
+                .astype(np.int32) for _ in range(tenants)]
+    reqs, rid = [], 0
+    for b in range(bursts):
+        for t in range(tenants):
+            for i in range(burst_size):
+                sfx = rng.integers(
+                    0, cfg.vocab_size,
+                    size=int(suffix_lens[rid % len(suffix_lens)])
+                ).astype(np.int32)
+                req = ServeRequest(
+                    rid=rid,
+                    tokens=np.concatenate([prefixes[t], sfx]),
+                    params=_params(decode_lens[rid % len(decode_lens)],
+                                   temperature, top_p, top_k, sample_seed, rid),
+                    rclass=t,
+                    arrival=b * gap + 2 * i,
+                )
+                reqs.append(attach_modality_inputs(req, cfg, rng))
+                rid += 1
+    return reqs
+
+
 def contention_trace(cfg: ModelConfig, num_requests: int = 24,
                      prompt_lens: tuple = (8, 16), hog_prompt: int = 32,
                      light_tokens: int = 4, hog_tokens: int = 24,
@@ -108,6 +147,92 @@ def contention_trace(cfg: ModelConfig, num_requests: int = 24,
         )
         reqs.append(attach_modality_inputs(req, cfg, rng))
     return reqs
+
+
+def fleet_trace(cfg: ModelConfig, tenants: int = 3, num_requests: int = 24,
+                prefix_len: int = 32, suffix_lens: tuple = (4, 6),
+                decode_lens: tuple = (6, 10), hot_tenant: int = 0,
+                hot_frac: float = 0.5, burst_every: int = 6,
+                burst_size: int = 4, seed: int = 0,
+                temperature: float = 0.0, top_p: float = 1.0,
+                top_k: int = 0, sample_seed: int = 0) -> list:
+    """Multi-tenant fleet traffic for the placement router: ``tenants`` fixed
+    system prompts (request class = tenant id, so placement affinity and the
+    per-class cost memory both key on the tenant), arrivals in tight bursts,
+    and one *hot* tenant contributing ``hot_frac`` of the volume — the
+    hot-replica skew that separates placement policies. A router that keeps a
+    tenant's traffic where its prompt chains already live prefills only
+    suffixes; a router that sprays it re-prefills the prefix on every replica
+    and convoys the hot one. Suffix and decode lengths come from tiny bucket
+    sets so each replica compiles a bounded number of shapes."""
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(0, cfg.vocab_size, size=prefix_len)
+                .astype(np.int32) for _ in range(tenants)]
+    reqs = []
+    for rid in range(num_requests):
+        hot = rng.random() < hot_frac
+        if tenants > 1:
+            other = (hot_tenant + 1 + int(rng.integers(0, tenants - 1))) \
+                % tenants
+        else:
+            other = hot_tenant
+        t = hot_tenant if hot else other
+        sfx = rng.integers(0, cfg.vocab_size,
+                           size=int(suffix_lens[rid % len(suffix_lens)])
+                           ).astype(np.int32)
+        req = ServeRequest(
+            rid=rid,
+            tokens=np.concatenate([prefixes[t], sfx]),
+            params=_params(decode_lens[rid % len(decode_lens)], temperature,
+                           top_p, top_k, sample_seed, rid),
+            rclass=t,
+            arrival=(rid // burst_size) * burst_every + rid % burst_size,
+        )
+        reqs.append(attach_modality_inputs(req, cfg, rng))
+    return reqs
+
+
+def failover_fleet_trace(cfg: ModelConfig, replicas: int = 3,
+                         crash_replica: int = 1, seed: int = 0,
+                         rejoin: bool = True, **kw) -> tuple:
+    """The fleet trace, fault-laced: ``fleet_trace`` traffic plus a matched
+    crash-of-one fault-plan spec (``serve.faults.FaultPlan.parse`` grammar)
+    sized to the trace — the crash lands about a third of the way through the
+    arrival window (survivors absorb the evacuated work while traffic is
+    still arriving, the hard case), and with ``rejoin`` the replica returns
+    cold around two thirds of the window — before the tail of arrivals, so
+    prefix-affinity traffic visibly rewarms its pinned cache while the run
+    is still live. Returns ``(requests, plan_spec)`` — the manual-run
+    variant behind ``launch/serve --trace fleet-faults``."""
+    reqs = fleet_trace(cfg, seed=seed, **kw)
+    horizon = max(r.arrival for r in reqs) if reqs else 0
+    crash_at = max(1, horizon // 3)
+    r = crash_replica % max(replicas, 1)
+    spec = f"crash@{crash_at}:r{r}"
+    if rejoin:
+        spec += f" rejoin@{max(crash_at + 10, (2 * horizon) // 3)}:r{r}"
+    return reqs, spec
+
+
+def poweroff_fleet_trace(cfg: ModelConfig, seed: int = 0,
+                         restart: bool = True, **kw) -> tuple:
+    """The fleet trace, power-loss-laced: ``fleet_trace`` traffic plus a
+    matched ``poweroff`` fault-plan spec (``serve.faults.FaultPlan.parse``
+    grammar) sized to the trace — the lights go out about halfway through
+    the arrival window (in-flight decodes, queued work and pending arrivals
+    all straddle the loss, the hard case for the journal), and with
+    ``restart`` the rebuilt fleet resumes a few ticks later, before the tail
+    of arrivals. Returns ``(requests, plan_spec)`` — drive with
+    ``serve.durability.run_durable`` (a plain ``Router.run`` would just die
+    at the poweroff tick); the manual-run variant behind
+    ``launch/serve --trace fleet-poweroff``."""
+    reqs = fleet_trace(cfg, seed=seed, **kw)
+    horizon = max(r.arrival for r in reqs) if reqs else 0
+    off_at = max(1, horizon // 2)
+    spec = f"poweroff@{off_at}"
+    if restart:
+        spec += f" restart@{off_at + 4}"
+    return reqs, spec
 
 
 def shared_prefix_trace(cfg: ModelConfig, num_requests: int = 32,

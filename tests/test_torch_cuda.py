@@ -2,8 +2,9 @@
 (paged decode, paged verify, flash, the MoE grouped matmul, the blackboard
 grid step), the verify kernel at Sq = 1 against the decode kernel, the
 engine (plain and speculative, dense and MoE) on the card against its own
-one-shot oracle, and the VLSI extraction on the card against the port's
-CPU run.
+one-shot oracle, a fleet under a crash against its fault-free run, a warm
+snapshot's K/V round trip, and the VLSI extraction on the card against the
+port's CPU run.
 
 Marked ``cuda``; each test decides inside itself whether a card is visible
 and skips otherwise (never at import time). This file imports no JAX, so it
@@ -12,6 +13,8 @@ also runs on the machine with the card:
     python -m pytest -m cuda tests/test_torch_cuda.py
     python -m pytest -m cuda tests/test_torch_cuda.py -k "paged or verify"
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -33,8 +36,9 @@ from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_verify,
                                                  paged_attention_verify_ref)
 from repro_torch.models import model
-from repro_torch.serve import api, spec, traces
+from repro_torch.serve import api, durability, router, spec, traces
 from repro_torch.serve import engine as eng_mod
+from repro_torch.serve.faults import FaultInjector, FaultPlan
 
 pytestmark = pytest.mark.cuda
 
@@ -423,6 +427,67 @@ def test_engine_on_card_matches_oneshot(card):
                                  params=req.params)
         assert api.generate(params, cfg, probe, max_cache=96).tokens \
             == req.out_tokens
+
+
+def _fleet_engine(params, cfg, card):
+    return eng_mod.Engine(params, cfg, eng_mod.EngineConfig(
+        num_slots=2, max_cache=64, page_size=16, prefill_chunk=16,
+        num_classes=3, latency_budget=64.0, pin_pages=4), device=card)
+
+
+def test_fleet_on_card_crash_equals_fault_free(card):
+    """A 2-replica smoke fleet on the card under a crash + rejoin (and a
+    pressure shock) completes every rid with its fault-free tokens; the
+    replaced replica's pool is freed."""
+    cfg = configs.get_config("smollm-360m").smoke()
+    params = model.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                               device=card)
+
+    def trace():
+        return traces.fleet_trace(cfg, tenants=3, num_requests=12,
+                                  prefix_len=32, suffix_lens=(4,),
+                                  decode_lens=(6,), burst_every=4,
+                                  burst_size=3)
+
+    clean = router.Router([_fleet_engine(params, cfg, card)
+                           for _ in range(2)])
+    clean.run(trace(), max_ticks=400)
+    ref = {r.rid: r.out_tokens for r in clean.completed}
+    fleet = router.Router(
+        [_fleet_engine(params, cfg, card) for _ in range(2)],
+        injector=FaultInjector(
+            FaultPlan.parse("crash@4:r1 rejoin@14:r1 pressure@2+4:r0:p2"),
+            engine_factory=lambda: _fleet_engine(params, cfg, card)))
+    s = fleet.run(trace(), max_ticks=400)
+    assert s["deaths"] == 1 and s["rejoins"] == 1 and s["unserved"] == 0
+    assert s["replaced_requests"] > 0
+    assert {r.rid: r.out_tokens for r in fleet.completed} == ref
+    assert len(ref) == 12 and fleet.fallen[0].pool is None
+
+
+def test_warm_snapshot_round_trips_kv_bit_for_bit(card, tmp_path):
+    """Export a warm bf16 engine's pinned forest, write it as a snapshot,
+    read it back and import it into a fresh engine: every pinned page's K/V
+    is the exported one bit for bit."""
+    cfg = dataclasses.replace(configs.get_config("smollm-360m").smoke(),
+                              dtype="bfloat16")
+    params = model.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                               device=card)
+    eng = _fleet_engine(params, cfg, card)
+    eng.run(traces.returning_tenant_trace(cfg, prefix_len=48, bursts=1),
+            max_ticks=400)
+    meta, kv = eng.export_warm_state()
+    assert kv and kv[0].dtype == torch.bfloat16
+    durability.save_snapshot(str(tmp_path), 3, {"replicas": [meta]}, kv)
+    blob, back, step = durability.load_snapshot(str(tmp_path))
+    fresh = _fleet_engine(params, cfg, card)
+    n = fresh.import_warm_state(blob["replicas"][0], back)
+    assert n == len(meta["forest"]) > 0 and step == 3
+    meta2, kv2 = fresh.export_warm_state()
+    assert [e["tokens"] for e in meta2["forest"]] == \
+        [e["tokens"] for e in meta["forest"]]
+    for a, b in zip(kv, kv2):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 def test_spec_engine_on_card_matches_oneshot(card):

@@ -294,3 +294,148 @@ class TestImmuneAdmission:
         assert stats["fifo"]["completed"] == 24
         assert stats["immune"]["p99_latency"] <= stats["fifo"]["p99_latency"]
         assert stats["immune"]["goodput"] >= stats["fifo"]["goodput"]
+
+
+# ---------------------------------------------------------------------------
+# fleet hooks, against the JAX package's engine
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def jax_pair():
+    import jax
+    from repro import configs as jconfigs
+    from repro.models import model as jmodel
+    jax.config.update("jax_platform_name", "cpu")
+    jcfg = jconfigs.get_config("smollm-360m").smoke()
+    cfg = configs.get_config("smollm-360m").smoke()
+    jp = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = model.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    return jcfg, cfg, jp, tp
+
+
+FLEET_ECFG = dict(num_slots=2, max_cache=96, page_size=16, prefill_chunk=16,
+                  policy="immune", num_classes=2, latency_budget=12.0,
+                  pin_pages=8, num_pages=2 * 6 + 1 + 8)
+
+
+def _engines(jax_pair, **kw):
+    from repro.serve import engine as jengine
+    jcfg, cfg, jp, tp = jax_pair
+    ekw = dict(FLEET_ECFG, **kw)
+    return (jengine.Engine(jp, jcfg, jengine.EngineConfig(**ekw)),
+            engine.Engine(tp, cfg, engine.EngineConfig(**ekw), device="cpu"))
+
+
+def _tenant_trace(m, cfg, **kw):
+    base = dict(tenants=2, prefix_len=48, suffix_lens=(4,), burst_size=2,
+                bursts=2, gap=30, decode_lens=(6,))
+    base.update(kw)
+    return m.returning_tenant_trace(cfg, **base)
+
+
+class TestFleetHooks:
+    def test_admission_degrade_export_import_like_jax(self):
+        from repro.serve import engine as jengine
+        ecfg = dict(num_slots=4, max_cache=64, num_classes=3,
+                    latency_budget=10.0)
+        ours = engine.ImmuneAdmission(engine.EngineConfig(**ecfg))
+        ref = jengine.ImmuneAdmission(jengine.EngineConfig(**ecfg))
+        demand, cost = np.asarray([1.0, 0.0, 1.0]), np.asarray([2.0, 2.0, 50.0])
+        for a in (ours, ref):
+            for t in range(5):
+                a.observe_completion(t % 3, cost=3.0 + t, latency=4.0 * t)
+                a.end_tick(2, 6, demand, cost)
+                a.degrade((1, 7), 0.6)
+        assert ours.export_state() == ref.export_state()
+        assert not ours.admissible(1) and ours.admissible(0)
+        back = engine.ImmuneAdmission(engine.EngineConfig(**ecfg))
+        back.import_state(ref.export_state())
+        assert back.export_state() == ours.export_state()
+        for a in (back, ref):
+            a.end_tick(0, 0, np.zeros(3), cost)
+        assert back.export_state() == ref.export_state()
+
+    def test_telemetry_equals_jax_and_is_host_side(self, jax_pair):
+        from repro.serve import traces as jtraces
+        jcfg, cfg, _, _ = jax_pair
+        jeng, teng = _engines(jax_pair)
+        jeng.run(_tenant_trace(jtraces, jcfg, bursts=1), max_ticks=300)
+        teng.run(_tenant_trace(traces, cfg, bursts=1), max_ticks=300)
+        for name in ("class_costs", "anergy_levels"):
+            ours, ref = getattr(teng, name)(), getattr(jeng, name)()
+            assert isinstance(ours, np.ndarray) and ours.dtype == np.float64
+            np.testing.assert_array_equal(ours, ref)
+        assert teng.pinned_chain_keys() == jeng.pinned_chain_keys()
+        for req, jreq in zip(_tenant_trace(traces, cfg, bursts=2)[4:],
+                             _tenant_trace(jtraces, jcfg, bursts=2)[4:]):
+            assert teng.prefix_affinity(req) == jeng.prefix_affinity(jreq) \
+                == 48
+            teng.submit(req)
+            jeng.submit(jreq)
+            assert teng.occupancy() == jeng.occupancy()
+
+    def test_evacuate_like_jax_and_consistent_on_device(self, jax_pair):
+        from repro.serve import traces as jtraces
+        jcfg, cfg, _, _ = jax_pair
+        jeng, teng = _engines(jax_pair)
+        for eng, m, c in ((jeng, jtraces, jcfg), (teng, traces, cfg)):
+            for r in _tenant_trace(m, c, gap=2):
+                eng.submit(r)
+            for _ in range(5):
+                eng.step()
+        lost = teng.evacuate()
+        assert [(r.rid, r.out_tokens, r.slot) for r in lost] == \
+            [(r.rid, r.out_tokens, r.slot) for r in jeng.evacuate()]
+        assert lost and any(r.out_tokens for r in lost)
+        assert teng.occupancy() == 0 and not teng.jobs
+        assert teng.alloc.pages_in_use == teng.alloc.pages_pinned \
+            == jeng.alloc.pages_pinned
+        assert not teng.active.any() and not teng.pool["pos"].any()
+        assert not teng.active_host.any() and not teng.emitted.any()
+        teng.drop_device_state()
+        assert teng.pool is None and teng.stats()["unserved"] == 0
+
+    def test_warm_state_round_trip_and_across_packages(self, jax_pair):
+        """Export a warm engine's forest and memories; a fresh port engine
+        importing the port's or the JAX package's export holds the same K/V
+        in its pinned pages and serves the returning tenants as the JAX
+        engine that imported it does."""
+        from repro.serve import traces as jtraces
+        jcfg, cfg, _, _ = jax_pair
+        jeng, teng = _engines(jax_pair)
+        jeng.run(_tenant_trace(jtraces, jcfg, bursts=1), max_ticks=300)
+        teng.run(_tenant_trace(traces, cfg, bursts=1), max_ticks=300)
+        meta, kv = teng.export_warm_state()
+        jmeta, jkv = jeng.export_warm_state()
+        assert meta == jmeta and meta["kv_per_page"] == 2
+        assert len(kv) == len(jkv) == 2 * len(meta["forest"]) == 12
+        for a, b in zip(kv, jkv):
+            assert a.shape == b.shape == (cfg.num_layers, 16,
+                                          cfg.num_kv_heads, cfg.head_dim)
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+        outs = []
+        for src_meta, src_kv in ((meta, kv), (jmeta, [torch.tensor(
+                np.asarray(x)) for x in jkv])):
+            je2, te2 = _engines(jax_pair)
+            assert te2.import_warm_state(dict(src_meta), src_kv) == 6
+            assert je2.import_warm_state(dict(jmeta), jkv) == 6
+            assert te2.pinned_chain_keys() == teng.pinned_chain_keys()
+            np.testing.assert_array_equal(te2.class_costs(),
+                                          teng.class_costs())
+            pages = [p for p in range(te2.alloc.num_pages)
+                     if te2.alloc.is_pinned(p)]
+            got = te2.pool["layers"][0][0]["k"][:, pages]
+            want = torch.stack(src_kv[0::2], dim=1)
+            assert torch.equal(got, want)
+            back = _tenant_trace(traces, cfg, bursts=2)[4:]
+            jback = _tenant_trace(jtraces, jcfg, bursts=2)[4:]
+            for r in back:
+                r.arrival = 0
+            for r in jback:
+                r.arrival = 0
+            s = te2.run(back, max_ticks=300)
+            je2.run(jback, max_ticks=300)
+            assert s["pinned_pages_adopted"] == 6     # 3 pages a tenant
+            assert {r.rid: r.out_tokens for r in te2.completed} == \
+                {r.rid: r.out_tokens for r in je2.completed}
+            outs.append({r.rid: r.out_tokens for r in te2.completed})
+        assert outs[0] == outs[1]

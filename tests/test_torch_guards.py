@@ -110,10 +110,24 @@ class TestDevices:
     @pytest.mark.parametrize("flag", ["--replicas", "--faults", "--journal",
                                       "--restore"])
     def test_later_slices_rejected(self, flag, capsys):
-        with pytest.raises(SystemExit):
-            launch_serve.main(["--arch", "smollm-360m", "--smoke", "--stream",
-                               "--device", "cpu", flag, "x"])
-        assert "not ported yet" in capsys.readouterr().err
+        """Only ``--restore`` still waits for its slice; the fleet flags
+        arrived with slice 6 and parse (a bad value is refused as such)."""
+        if flag == "--restore":
+            with pytest.raises(SystemExit):
+                launch_serve.main(["--arch", "smollm-360m", "--smoke",
+                                   "--stream", "--device", "cpu", flag, "x"])
+            assert "not ported yet" in capsys.readouterr().err
+            return
+        assert list(launch_serve.LATER) == ["restore"]
+        value = {"--replicas": "3", "--faults": "crash@8:r1",
+                 "--journal": "serve.wal"}[flag]
+        args = launch_serve.build_parser().parse_args(
+            ["--arch", "smollm-360m", flag, value])
+        assert str(getattr(args, flag[2:])) == value
+        with pytest.raises(SystemExit):        # faults need a fleet
+            launch_serve.main(["--arch", "smollm-360m", "--smoke",
+                               "--device", "cpu", "--faults", "crash@1:r0"])
+        assert "not ported yet" not in capsys.readouterr().err
 
     def test_spec_decode_waits_for_slice_2(self):
         """Speculative decoding arrived with slice 2: a spec engine builds

@@ -575,3 +575,92 @@ class TestConcurrentDuplicateRegistration:
         assert len(a._free) + len(live) == a.usable_pages
         a.ensure(2, 4)
         assert not live & set(a.owned(2)), "one page handed to two slots"
+
+
+class TestFleetHooks:
+    """The allocator's fleet hooks against the JAX package's: pressure
+    shocks (``seize`` / ``restore``), the pinned-forest export / import of a
+    warm snapshot, and the pin memory's state."""
+
+    @staticmethod
+    def _pair(num_pages=12, pin_pages=6, **kw):
+        kw = dict(share_prefix=True, pin_pages=pin_pages, num_classes=2,
+                  require_reservation=False, **kw)
+        return (PageAllocator(num_pages, 4, 2, 6, **kw),
+                jpaging.PageAllocator(num_pages, 4, 2, 6, **kw))
+
+    @staticmethod
+    def _pin_chain(a, toks, rclass=1, slot=0):
+        """Admit ``toks`` (adopting its indexed full pages), register its
+        pages and retire the slot, which pins them."""
+        a.adopt(slot, a.match_prefix(toks)[0], rclass=rclass)
+        a.ensure(slot, len(toks) // 4)
+        a.register_prefix(slot, toks, rclass=rclass)
+        a.release(slot)
+
+    @staticmethod
+    def _conserved(a):
+        live = {p for s in range(a.num_slots) for p in a.owned(s)}
+        return len(a._free) + len(live) + a.pages_pinned == a.usable_pages
+
+    @pytest.mark.parametrize("npages", [1, 3, 20])
+    def test_seize_and_restore_like_jax(self, npages):
+        ours, ref = self._pair()
+        for a in (ours, ref):
+            self._pin_chain(a, np.arange(8, dtype=np.int32))
+            a.ensure(1, 3)                            # live pages: never seized
+        taken = ours.seize(npages)
+        assert taken == ref.seize(npages) == min(npages, 11 - 3)
+        assert ours.pages_seized == ref.pages_seized == taken
+        assert (ours._free, sorted(ours._pinned), ours.usable_pages) == \
+            (ref._free, sorted(ref._pinned), ref.usable_pages)
+        assert self._conserved(ours) and ours.owned(1) == ref.owned(1)
+        assert ours.restore(2) == ref.restore(2)
+        assert ours.restore() == ref.restore()
+        assert ours.pages_seized == 0 and ours.usable_pages == 11
+        assert ours._free == ref._free and self._conserved(ours)
+
+    def test_export_equals_jax_and_imports_across_packages(self):
+        ours, ref = self._pair()
+        for a in (ours, ref):
+            self._pin_chain(a, np.arange(12, dtype=np.int32), rclass=1)
+            self._pin_chain(a, np.concatenate(
+                [np.arange(4), [9, 9, 9, 9]]).astype(np.int32), rclass=0)
+            a.ensure(1, 2)
+            a.register_prefix(1, np.arange(40, 48, dtype=np.int32))  # live
+        forest = ours.export_pinned()
+        assert forest == ref.export_pinned()
+        assert [e["parent"] for e in forest] == [-1, 0, 1, 0, -1, 4]
+        assert ours.pinned_chain_keys() == ref.pinned_chain_keys()
+        for src in (forest, ref.export_pinned()):
+            b, jb = self._pair()
+            assert b.import_pinned(src) == jb.import_pinned(src)
+            assert b.pinned_chain_keys() == jb.pinned_chain_keys()
+            assert b.pages_pinned == 6 and self._conserved(b)
+            full, partial = b.match_prefix(np.arange(13, dtype=np.int32))
+            assert len(full) == 3 and partial is None
+
+    def test_import_respects_budget_and_skips_subtrees(self):
+        a, _ = self._pair()
+        self._pin_chain(a, np.arange(12, dtype=np.int32))
+        forest = a.export_pinned()
+        small = PageAllocator(12, 4, 2, 6, pin_pages=2)
+        assert len(small.import_pinned(forest)) == 2
+        assert small.pages_pinned == 2
+        torn = [dict(e) for e in forest]
+        torn[1]["tokens"] = torn[1]["tokens"][:3]     # not a full page
+        b, _ = self._pair()
+        assert [i for i, _ in b.import_pinned(torn)] == [0]
+        assert b.pages_pinned == 1
+
+    def test_pin_memory_state_round_trip(self):
+        ours, ref = self._pair()
+        for a in (ours, ref):
+            a.adopt(0, [], rclass=0)
+            a._note_adoption(1, 3)
+        np.testing.assert_array_equal(ours.pin_memory_state(),
+                                      np.asarray(ref.pin_memory_state()))
+        b, _ = self._pair()
+        b.set_pin_memory_state(ours.pin_memory_state().tolist())
+        np.testing.assert_array_equal(b._class_w, ours._class_w)
+        assert b._score(1) == ours._score(1)
