@@ -200,8 +200,28 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    a decode tick a layer of every replica (fallen ones included), flash
    once a one-shot prefill a layer (none: every fleet prompt prefills in
    chunks), nothing else, every bf16 call on ``mma``.
+10. Training (``repro_torch.train``), with no kernel on its path, as none
+   lies on the JAX package's: (c) one train step from one state on one
+   batch on the card and on the CPU, fp32 with TF32 off, at the CPU tests'
+   smoke sizes (smollm-360m and granite-moe-3b-a800m): ``sample_batch``
+   bitwise equal, the loss within 1e-5, every gradient leaf within 1e-5 of
+   its max-abs, the new state and metrics within 5e-5 (AdamW eps 1e-4, as
+   the CPU parity test). (a) Full-width smollm-360m (32 layers, bf16) at
+   the reference CLI's batch and sequence, 8 x 128, through ``Trainer``:
+   run A uninterrupted (8 steps), run B killed by ``failure_at=6`` past its
+   step-4 checkpoint, run B2 resuming it in the same workdir; every param
+   and AdamW leaf of A and B2 ``torch.equal``; A's losses finite and the
+   last below the first; ``launch.serve --restore`` (in-process, torch
+   route) serves 2 greedy requests from A's checkpoint token-equal to A's
+   model served from memory; one step profiled (wall, device ms, idle
+   share, top device ops), one step under deterministic mode (warn only:
+   what it flags is printed), the trainer's checkpoints and restore timed,
+   a checkpoint's bytes. (b) granite-moe-3b-a800m at ``MOE_LAYERS``, 6
+   ``train_step`` at 4 x 128: every loss and load CV finite, the router
+   bias moved off zero, per-step load CV and drop fraction printed. All
+   five kernel wrappers' launch counts read 0 across the phase.
 
-Phases 3-9 each set every launch count to 0 just before they drive their
+Phases 3-10 each set every launch count to 0 just before they drive their
 path and read the counts just after. Phases 3 and 9 and every phase-8 model
 but recurrentgemma-9b run at full depth; phases 4-6 and recurrentgemma-9b
 at the depths above, so the whole run stays well inside 1,200 s.
@@ -216,6 +236,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2341,6 +2362,264 @@ def fleet_phase(torch, configs, eng_mod, traces, model_lib, router_mod,
     return rep, main_n
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training (the trainer, auto-resume, the router's regulation)
+# ---------------------------------------------------------------------------
+# 10a: the reference CLI's batch and sequence; 8 steps, a checkpoint every
+# 4, the injected failure at step 6 (past the first checkpoint)
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAILURE_AT = 8, 4, 6
+# 10b: granite-moe-3b-a800m at phase 6's depth
+MOE_TRAIN_STEPS, MOE_TRAIN_BATCH = 6, 4
+# 10c: the CPU parity tests' tolerances (of each leaf's max-abs), and their
+# eps: at 1e-8 a first Adam step is sign(g), which rounding flips on
+# gradient entries at the noise floor
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_STATE_TOL = 1e-5, 1e-5, 5e-5
+TRAIN_PARITY_EPS = 1e-4
+
+
+def leaf_rel_err(torch, a, b) -> float:
+    """max |a - b| over max |a| (floor 1e-30), in float64."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / a.abs().max().clamp(min=1e-30))
+
+
+def card_vs_cpu(torch, configs, arch: str, seed: int) -> dict:
+    """10c: one train step from one state on one batch, on the card and on
+    the CPU, at the smoke size the CPU tests use (fp32, TF32 off): the loss,
+    every gradient leaf, then the new state and the metrics."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import pipeline
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.train import train_step as ts
+    cfg = configs.get_config(arch).smoke()
+    tcfg = TrainConfig(learning_rate=1e-2, warmup_steps=0, decay_steps=100,
+                       eps=TRAIN_PARITY_EPS)
+    tree = ts.train_state_to_numpy(ts.init_train_state(
+        torch.Generator().manual_seed(seed), cfg, tcfg, device="cpu"), cfg)
+    states = {d: ts.train_state_from_numpy(tree, cfg, d)
+              for d in ("cuda", "cpu")}
+    batches = {d: pipeline.sample_batch(cfg, 4, 32,
+                                        pipeline.init_data_state(d))[0]
+               for d in ("cuda", "cpu")}
+    check(all(torch.equal(batches["cuda"][k].cpu(), batches["cpu"][k])
+              for k in batches["cpu"]),
+          f"{arch}: sample_batch on the card != on the CPU")
+    got = {d: ts.loss_and_grads(st.params, cfg, batches[d],
+                                st.router.bias if st.router else None)
+           for d, st in states.items()}
+    loss_err = abs(float(got["cuda"][0]) - float(got["cpu"][0]))
+    grad_err = max(leaf_rel_err(torch, c, g) for c, g in
+                   zip(got["cpu"][2], got["cuda"][2]))
+    new = {d: ts.train_step(st, batches[d], cfg, tcfg) for d, st in
+           states.items()}
+    la, _ = ckpt.flatten(ts.state_tree(new["cpu"][0], cfg))
+    lb, _ = ckpt.flatten(ts.state_tree(new["cuda"][0], cfg))
+    state_err = max(leaf_rel_err(torch, a.float(), b.float())
+                    for a, b in zip(la, lb))
+    metric_err = max(abs(float(a) - float(b)) for a, b in
+                     zip(new["cpu"][1], new["cuda"][1]))
+    check(loss_err <= TRAIN_LOSS_TOL and grad_err <= TRAIN_GRAD_TOL
+          and state_err <= TRAIN_STATE_TOL and metric_err <= TRAIN_STATE_TOL,
+          f"{arch}: card vs CPU loss {loss_err}, grads {grad_err}, state "
+          f"{state_err}, metrics {metric_err}")
+    return {"loss_abs_err": loss_err, "grad_rel_err": grad_err,
+            "state_rel_err": state_err, "metric_abs_err": metric_err,
+            "leaves": len(la)}
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def train_phase(torch, configs, seed: int, counters: dict) -> dict:
+    """Phase 10. (a) full-width smollm-360m through ``Trainer``: run A
+    uninterrupted, run B killed at ``TRAIN_FAILURE_AT`` and run B2 resuming
+    it in the same workdir, A == B2 bitwise (every param and AdamW leaf);
+    the loss falls; ``launch.serve --restore`` serves two greedy requests
+    from A's checkpoint, token-equal to A's model served from memory; one
+    step profiled, a checkpoint timed. (b) granite-moe-3b-a800m at
+    ``MOE_LAYERS``: ``train_step`` with the immune router's regulation.
+    (c) card vs CPU in fp32. No kernel launches anywhere in the phase."""
+    import tempfile
+    import warnings
+    from repro_torch import prng
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import pipeline
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve import decode
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer
+    reset_counts(counters)
+    rep = {"parity_fp32": {arch: card_vs_cpu(torch, configs, arch, seed)
+                           for arch in ("smollm-360m", MOE_ARCH)}}
+
+    # -- 10a ------------------------------------------------------------------
+    cfg = configs.get_config("smollm-360m")
+    tcfg = TrainConfig(learning_rate=1e-3,
+                       warmup_steps=max(TRAIN_STEPS // 20, 5),
+                       decay_steps=TRAIN_STEPS, seed=seed)
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    class Timed(Trainer):
+        """The trainer, timing its checkpoints and its init-or-restore."""
+
+        def _checkpoint(self, state, step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._checkpoint(state, step)
+            self.times.setdefault("save_s", []).append(
+                time.perf_counter() - t0)
+
+        def init_or_restore(self):
+            t0 = time.perf_counter()
+            out = super().init_or_restore()
+            torch.cuda.synchronize()
+            self.times["init_or_restore_s"] = time.perf_counter() - t0
+            return out
+
+    try:
+        def trainer(sub, **kw):
+            tr = Timed(cfg=cfg, tcfg=tcfg, workdir=os.path.join(work, sub),
+                       batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=1,
+                       device="cuda", **kw)
+            tr.times = {}
+            return tr
+
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        # the uninterrupted run checkpoints only at its end
+        tr_a = trainer("a", ckpt_every=TRAIN_STEPS)
+        state_a = tr_a.train(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        losses = [h["loss"] for h in tr_a.history]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"smollm-360m loss did not fall: {losses}")
+        try:
+            trainer("b", ckpt_every=TRAIN_CKPT_EVERY,
+                    failure_at=TRAIN_FAILURE_AT).train(TRAIN_STEPS)
+            fail("the injected failure did not fire")
+        except RuntimeError as e:
+            check("injected node failure" in str(e), f"run B raised {e!r}")
+        tr_b2 = trainer("b", ckpt_every=TRAIN_CKPT_EVERY)
+        state_b2 = tr_b2.train(TRAIN_STEPS)
+        check(tr_b2.history[0]["step"] == TRAIN_CKPT_EVERY,
+              f"run B2 resumed at step {tr_b2.history[0]['step']}")
+        la, _ = ckpt.flatten(ts.state_tree(state_a, cfg))
+        lb, _ = ckpt.flatten(ts.state_tree(state_b2, cfg))
+        same = [bool(torch.equal(a, b)) for a, b in zip(la, lb)]
+        differ = [i for i, ok in enumerate(same) if not ok]
+        check(len(la) == len(lb) and not differ,
+              f"resume not bitwise: leaves {differ} of {len(la)} differ")
+        times = {"run_a": tr_a.times, "run_b2": tr_b2.times}
+        nbytes = dir_bytes(os.path.join(work, "a", f"step_{TRAIN_STEPS:08d}"))
+        del state_b2, tr_b2, la, lb
+
+        # serve the checkpoint (torch route: no kernel in this phase)
+        argv = ["--arch", "smollm-360m", "--device", "cuda", "--batch", "2",
+                "--steps", "8", "--attn-backend", "torch", "--restore",
+                os.path.join(work, "a")]
+        served = serve_cli.main(argv)
+        args = serve_cli.build_parser().parse_args(argv)
+        key = torch.as_tensor(prng.PRNGKey(1).astype("int64"))
+        prompts = {"tokens": prng.randint(
+            key, (args.batch, args.prompt_len), 0, cfg.vocab_size)
+            .long().cuda()}
+        mem, _ = decode.generate(state_a.params, cfg, prompts,
+                                 max_cache=args.prompt_len + args.steps + 8,
+                                 steps=args.steps, attn_backend="torch")
+        check(torch.equal(served, mem.cpu()),
+              f"--restore tokens {served.tolist()} != from memory "
+              f"{mem.tolist()}")
+
+        # where a step's time goes, and one checkpoint's
+        data = pipeline.DataState(step=torch.tensor(
+            TRAIN_STEPS, dtype=torch.int32, device="cuda"))
+        batch, _ = pipeline.sample_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, data)
+        holder = [state_a]
+
+        def one_step():
+            holder[0], _ = ts.train_step(holder[0], batch, cfg, tcfg)
+
+        wall_ms, rows = device_rows(torch, one_step, one_step)
+        busy = sum(r[0] for r in rows)
+        # which ops of the step deterministic mode would flag (warn only)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                one_step()
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        flagged = sorted({str(w.message)[:160] for w in caught})
+        rep["smollm-360m"] = {
+            "params_m": model_lib.param_count(state_a.params) / 1e6,
+            "layers": cfg.num_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": TRAIN_STEPS, "ckpt_every": TRAIN_CKPT_EVERY,
+            "failure_at": TRAIN_FAILURE_AT, "losses": losses,
+            "run_a_s": wall_a,
+            "sec_per_step": [h["sec_per_step"] for h in tr_a.history],
+            "resume_bitwise": True, "leaves_compared": len(same),
+            "restore_tokens_equal": True,
+            "step_profile": {
+                "wall_ms": wall_ms, "device_ms": busy,
+                "idle_share": 1.0 - busy / wall_ms if busy else None,
+                "top": [{"kernel": k[:80], "ms": ms, "calls": n}
+                        for ms, n, k in rows[:8]]},
+            "deterministic_warnings": flagged,
+            "checkpoint": {"bytes": nbytes, **times},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del state_a, holder, tr_a
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # -- 10b ------------------------------------------------------------------
+    mcfg = dataclasses.replace(configs.get_config(MOE_ARCH),
+                               num_layers=MOE_LAYERS)
+    mtcfg = TrainConfig(learning_rate=1e-3, warmup_steps=5,
+                        decay_steps=MOE_TRAIN_STEPS, seed=seed)
+    torch.cuda.reset_peak_memory_stats()
+    state = ts.init_train_state(
+        torch.Generator(device="cuda").manual_seed(seed), mcfg, mtcfg,
+        device="cuda")
+    data = pipeline.init_data_state("cuda")
+    steps = []
+    for _ in range(MOE_TRAIN_STEPS):
+        batch, data = pipeline.sample_batch(mcfg, MOE_TRAIN_BATCH, TRAIN_SEQ,
+                                            data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = ts.train_step(state, batch, mcfg, mtcfg)
+        torch.cuda.synchronize()
+        steps.append({"loss": float(m.loss), "load_cv": float(m.load_cv),
+                      "drop_frac": float(m.drop_frac),
+                      "s": time.perf_counter() - t0})
+    check(all(np.isfinite([s["loss"] for s in steps]))
+          and all(np.isfinite([s["load_cv"] for s in steps])),
+          f"{MOE_ARCH} training: non-finite loss or load_cv {steps}")
+    bias_abs = float(state.router.bias.abs().max())
+    check(bias_abs > 0, f"{MOE_ARCH}: the router bias never moved")
+    rep[MOE_ARCH] = {
+        "params_b": model_lib.param_count(state.params) / 1e9,
+        "layers": mcfg.num_layers, "batch": MOE_TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "steps": steps, "router_bias_max_abs": bias_abs,
+        "router_steps": int(state.router.steps[0]),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state
+    torch.cuda.empty_cache()
+    n = {name: fn.launches for name, fn in counters.items()}
+    check(not any(n.values()), f"phase 10 launched kernels: {n}")
+    rep["launches"] = n
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="on-card smoke of the port")
     ap.add_argument("--seed", type=int, default=0)
@@ -2593,6 +2872,12 @@ def main() -> int:
                                     durability, args.seed, counters,
                                     kernel_paths)
     print("serving fleet: " + json.dumps(fleet_rep))
+
+    phase_start["10"] = time.perf_counter()
+    # -- phase 10: training ---------------------------------------------------
+    train_rep = train_phase(torch, configs, args.seed,
+                            {**counters, "grid_step": grid_step})
+    print("training: " + json.dumps(train_rep))
 
     kernels = [
         {"name": "paged_attention", "route": "cuda",

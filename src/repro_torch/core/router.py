@@ -17,8 +17,8 @@ router scores. Baselines: ``aux`` (Switch-style auxiliary loss), ``sign``
 (first-order bias update), ``none``.
 
 Every state is a float32 tensor, as in the JAX package. Serving uses
-``route`` and ``load_fractions``; the regulation step and the aux loss serve
-training (slice 7).
+``route`` and ``load_fractions``; training adds the aux loss and the
+regulation step, one state per layer.
 """
 from __future__ import annotations
 
@@ -58,9 +58,10 @@ def init_router_state(num_experts: int, device="cuda") -> RouterState:
 def update_router_state(state: RouterState, load_frac: torch.Tensor,
                         cfg: RouterConfig) -> RouterState:
     """One regulation step given the observed per-expert load fractions
-    (sum == 1)."""
+    (sum == 1). Every leaf may carry leading dims — (L, E), one state per
+    layer, as training keeps them — regulated row by row."""
     load_frac = load_frac.to(F32)
-    e = load_frac.shape[0]
+    e = load_frac.shape[-1]
     target = 1.0 / e
     mem = cfg.mem_decay * state.mem + (1.0 - cfg.mem_decay) * load_frac
     overload = mem - target
@@ -70,7 +71,8 @@ def update_router_state(state: RouterState, load_frac: torch.Tensor,
     bias = -(cfg.gain * suppressor + cfg.prop * overload)
     starved = mem < cfg.starve_frac * target          # anergy revival (IL-2)
     bias = bias + cfg.revival * starved.to(F32)
-    bias = torch.clamp(bias - bias.mean(), -cfg.bias_clip, cfg.bias_clip)
+    bias = torch.clamp(bias - bias.mean(dim=-1, keepdim=True),
+                       -cfg.bias_clip, cfg.bias_clip)
     if cfg.mode == "sign":
         bias = torch.clamp(
             state.bias + cfg.sign_gamma * torch.sign(target - load_frac),
@@ -126,6 +128,7 @@ def aux_loss(idx: torch.Tensor, probs: torch.Tensor,
 
 
 def load_cv(load_frac: torch.Tensor) -> torch.Tensor:
-    """Coefficient of variation of expert loads (0 == perfectly balanced)."""
-    mean = load_frac.mean()
-    return load_frac.std(correction=0) / torch.clamp(mean, min=1e-9)
+    """Coefficient of variation of expert loads over the last dim (0 ==
+    perfectly balanced)."""
+    mean = load_frac.mean(dim=-1)
+    return load_frac.std(dim=-1, correction=0) / torch.clamp(mean, min=1e-9)

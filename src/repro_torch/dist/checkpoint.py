@@ -151,12 +151,13 @@ def _read_leaf(path: str, entry: dict) -> torch.Tensor:
         if raw.dtype.itemsize != 2:
             raise ValueError(f"{os.path.basename(path)}: {raw.dtype} is not "
                              f"a 16-bit buffer")
+        # np.array, not np.ascontiguousarray: the latter makes a 0-d leaf
+        # (a step counter) 1-d
         return torch.from_numpy(
-            np.ascontiguousarray(raw).view(np.int16).copy()
-        ).view(torch.bfloat16)
+            np.array(raw, order="C").view(np.int16)).view(torch.bfloat16)
     if raw.dtype != np.dtype(dtype):
         raw = raw.view(np.dtype(dtype))
-    return torch.from_numpy(np.ascontiguousarray(raw).copy())
+    return torch.from_numpy(np.array(raw, order="C"))
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -113,6 +115,19 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise if autograd would record a call on ``tensors``. The kernels
+    have no backward (nor have the TPU kernels they replace): under grad
+    mode an input that requires grad would get an output with no
+    ``grad_fn``, and its gradient would be cut without a word. The check is
+    the same on CPU tensors, whose plain versions could differentiate, so a
+    CPU run fails where the card would."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; call it "
+                           f"under torch.no_grad() or on inputs that do not "
+                           f"require grad")
 
 
 def check(err: int, name: str) -> None:

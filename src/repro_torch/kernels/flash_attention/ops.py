@@ -55,6 +55,7 @@ def flash_attention(q, k, v, causal: bool = True):
                         f"{v.dtype}; need one of float32, bfloat16")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: inputs must be contiguous")
+    _build.check_no_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
     out = torch.empty_like(q)

@@ -59,6 +59,7 @@ def moe_gmm(x, w, group_sizes):
     if not (x.is_contiguous() and w.is_contiguous()
             and group_sizes.is_contiguous()):
         raise ValueError("moe_gmm: inputs must be contiguous")
+    _build.check_no_grad("moe_gmm", x, w)
     if x.device.type == "cpu":
         return gmm_ref(x, w, group_sizes)
     e, c, d = x.shape

@@ -87,6 +87,7 @@ def _check(name: str, q, k_pages, v_pages, table, idx) -> tuple:
                          f"be int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
+    _build.check_no_grad(name, q, k_pages, v_pages)
     return hk, h // hk
 
 

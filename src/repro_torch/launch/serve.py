@@ -38,8 +38,12 @@ Runs on ``cuda`` unless ``--device cpu`` is given; the weights are random
 from ``--seed``. Every family serves: an MoE arch with a zero router bias of
 shape (num_layers, E), as the JAX package does without ``--restore``; the
 SSM, hybrid, VLM and audio families with the random patches / frames the
-traces attach. ``--restore`` arrives with the training slice and is
-rejected here.
+traces attach. ``--restore DIR`` serves the newest checkpoint a training
+run left in DIR (``launch.train``): its params, and its router bias for an
+MoE arch:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --smoke --device cpu --batch 2 --steps 8 --restore /tmp/run1
 """
 from __future__ import annotations
 
@@ -52,14 +56,15 @@ import time
 import torch
 
 from repro_torch import configs, prng
+from repro_torch.configs.base import TrainConfig
+from repro_torch.dist import checkpoint as ckpt
 from repro_torch.models import model as model_lib
 from repro_torch.serve import decode, durability
 from repro_torch.serve import engine as eng_mod
 from repro_torch.serve import router as rt_mod
 from repro_torch.serve import traces
 from repro_torch.serve.faults import FaultInjector, FaultPlan
-
-LATER = {"restore": "slice 7 (checkpoints)"}
+from repro_torch.train import train_step as ts
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -151,10 +156,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sample-seed", type=int, default=0)
     ap.add_argument("--show-stream", type=int, default=4,
                     help="print stream deltas for this many request ids")
-    for name in LATER:
-        ap.add_argument(f"--{name}", default=None,
-                        help=f"not ported yet: {LATER[name]}")
+    ap.add_argument("--restore", default=None, metavar="DIR",
+                    help="serve the newest checkpoint of a training run's "
+                         "workdir (its params and MoE router bias)")
     return ap
+
+
+def restore(args, cfg):
+    """(params, router bias) of the newest checkpoint in ``args.restore``,
+    restored against a fresh train state (the JAX package's layout, fp32
+    moments, as ``launch.train`` writes them)."""
+    gen = torch.Generator(device=args.device).manual_seed(0)
+    state = ts.init_train_state(gen, cfg, TrainConfig(), device=args.device)
+    tree, step = ckpt.restore(args.restore, ts.state_tree(state, cfg))
+    if tree is None:
+        raise SystemExit(f"no usable checkpoint in {args.restore}")
+    state = ts.load_state_tree(state, tree, cfg)
+    print(f"restored step {step} from {args.restore}")
+    bias = state.router.bias if state.router is not None else None
+    return state.params, bias
 
 
 def make_trace(ap, args, cfg) -> list:
@@ -319,9 +339,6 @@ def serve_fleet(args, params, cfg, ecfg, bias, trace) -> dict:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    for name, where in LATER.items():
-        if getattr(args, name) is not None:
-            ap.error(f"--{name} is not ported yet; it arrives with {where}")
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda but no CUDA device is visible "
                  "(pass --device cpu to run the plain versions)")
@@ -334,10 +351,14 @@ def main(argv=None):
     cfg = configs.get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    gen = torch.Generator(device=args.device).manual_seed(args.seed)
-    params = model_lib.init_params(cfg, gen, device=args.device)
-    bias = (torch.zeros((cfg.num_layers, cfg.num_experts))
-            if cfg.num_experts else None)
+    if args.restore:
+        params, bias = restore(args, cfg)
+    else:
+        gen = torch.Generator(device=args.device).manual_seed(args.seed)
+        params = model_lib.init_params(cfg, gen, device=args.device)
+        bias = (torch.zeros((cfg.num_layers, cfg.num_experts),
+                            device=args.device)
+                if cfg.num_experts else None)
     if not args.stream:
         return serve_batch(args, params, cfg, bias)
 

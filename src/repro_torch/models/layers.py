@@ -64,6 +64,8 @@ def constrain(x: torch.Tensor, *spec) -> torch.Tensor:
 # parameters
 # ---------------------------------------------------------------------------
 def _param(t: torch.Tensor) -> nn.Parameter:
+    """A frozen parameter: serving records no autograd graph. The trainer
+    turns gradients on for its own model (``train_step.init_train_state``)."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -304,6 +306,20 @@ def masked_copy_(dst: torch.Tensor, src: torch.Tensor,
         src = torch.where(active.reshape((-1,) + (1,) * (src.dim() - 1)),
                           src, dst)
     return dst.copy_(src)
+
+
+def attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
+              window: Optional[int] = None,
+              prefix_len: Optional[int] = None) -> torch.Tensor:
+    """Full-sequence (training) attention: causal, optionally sliding-window
+    and / or prefix-LM. It runs the torch route (``_sdpa`` /
+    ``_sdpa_chunked``), as the JAX package trains through XLA: the flash
+    kernel has no backward."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _qkv(params, x, cfg, positions)
+    return _sdpa_dispatch(q, k, v, cfg, "torch", window, prefix_len) \
+        @ params.wo
 
 
 def attention_prefill(params: Attention, x: torch.Tensor, cfg: ModelConfig,

@@ -1,15 +1,18 @@
-"""Top-level model API: init / prefill / decode / sampling / paged-pool surgery
-(PyTorch port of ``repro/models/model.py``), uniform across families.
+"""Top-level model API: init / train loss / prefill / decode / sampling /
+paged-pool surgery (PyTorch port of ``repro/models/model.py``), uniform
+across families.
 
-Batch layouts: prefill ``{"tokens": (B, S) int, "patches": (B, P, Fd),
-"frames": (B, S, Fd)}``, decode ``{"token": (B, 1) int, "frame": (B, 1,
-Fd)}`` (patches for the VLM, frames for audio) plus a cache and its
+Batch layouts: train and prefill ``{"tokens": (B, S) int, "patches": (B, P,
+Fd), "frames": (B, S, Fd)}``, decode ``{"token": (B, 1) int, "frame": (B,
+1, Fd)}`` (patches for the VLM, frames for audio) plus a cache and its
 ``pos``. The model is a
 :class:`Model` module; every function takes it as ``params`` so the call
 shapes mirror the JAX package's. Caches are updated in place (see
 ``layers``); the returned cache dicts share their tensors with the inputs.
 ``router_bias`` is the MoE family's (num_layers, E) immune router bias
-(``None`` for dense models).
+(``None`` for dense models). :func:`param_layout` maps the per-layer
+parameters onto the JAX package's tree, whose stack leaves carry a leading
+repeat dimension: what the optimizer and the checkpoints see.
 """
 from __future__ import annotations
 
@@ -36,6 +39,14 @@ class SamplingSpec(NamedTuple):
     rep_penalty: torch.Tensor   # (B,) f32; 1.0 => disabled
     pres_penalty: torch.Tensor  # (B,) f32; 0.0 => disabled
     freq_penalty: torch.Tensor  # (B,) f32; 0.0 => disabled
+
+
+class TrainOut(NamedTuple):
+    loss: torch.Tensor                 # () fp32 next-token cross-entropy
+    aux_loss: torch.Tensor             # Switch aux loss (0 unless MoE)
+    load_frac: Optional[torch.Tensor]  # (L, E) per-layer expert load
+    drop_frac: torch.Tensor
+    logits_mean_abs: torch.Tensor      # cheap NaN / scale canary
 
 
 class Model(nn.Module):
@@ -77,35 +88,130 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))          # writable copy
 
 
+class ParamLeaf:
+    """One leaf of the JAX package's parameter tree, as the :class:`Model`
+    holds it: the Parameters it stacks (one per repeat of its segment, in
+    order; ``stacked``) or one Parameter outside the stack. ``shape``,
+    ``dtype`` and ``device`` are the JAX leaf's — a norm scale
+    inside the stack is (R, D), two-dimensional — so the optimizer decides
+    weight decay and factoring as the JAX package does."""
+
+    def __init__(self, name: str, stacked: bool):
+        self.name = name
+        self.stacked = stacked
+        self.params: list[nn.Parameter] = []
+
+    @property
+    def shape(self) -> tuple:
+        lead = (len(self.params),) if self.stacked else ()
+        return lead + tuple(self.params[0].shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.params[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.params[0].device
+
+    def value(self) -> torch.Tensor:
+        """The leaf as one tensor (a stacked copy inside the stack)."""
+        if self.stacked:
+            return torch.stack([p.detach() for p in self.params])
+        return self.params[0].detach()
+
+    def assign(self, t: torch.Tensor) -> None:
+        """Copy the JAX-layout tensor ``t`` into the Parameters (cast to
+        their dtype, moved to their device)."""
+        if tuple(t.shape) != self.shape:
+            raise ValueError(f"{self.name}: shape {tuple(t.shape)} != "
+                             f"{self.shape}")
+        with torch.no_grad():
+            if self.stacked:
+                for r, p in enumerate(self.params):
+                    p.copy_(t[r])
+            else:
+                self.params[0].copy_(t)
+
+
+def param_layout(params: Model, cfg: ModelConfig) -> dict:
+    """The JAX package's parameter tree with a :class:`ParamLeaf` at every
+    leaf: ``embed``, ``final_norm``, ``head`` and ``frontend`` as they are,
+    the stack as a list per segment of one block dict per pattern position,
+    each leaf stacking its repeats."""
+    where = transformer.layer_index(cfg)
+    stack = [[{} for _ in pattern] for pattern, _ in transformer.segments(cfg)]
+    tree: dict = {"stack": stack}
+    for name, p in params.named_parameters():
+        path = name.split(".")
+        if path[0] == "blocks":
+            si, _, pi = where[int(path[1])]
+            node, path, stacked = stack[si][pi], path[2:], True
+        else:
+            node, stacked = tree, False
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node.setdefault(path[-1], ParamLeaf(name, stacked)).params.append(p)
+    return tree
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def params_tree(params: Model, cfg: ModelConfig) -> dict:
+    """The parameters in the JAX package's tree layout (stacked copies,
+    detached from autograd)."""
+    return tree_map(ParamLeaf.value, param_layout(params, cfg))
+
+
+def load_params(params: Model, cfg: ModelConfig, tree: dict) -> Model:
+    """Copy a JAX-layout tree (tensors or numpy arrays, bf16 as ml_dtypes or
+    raw 16-bit) into ``params`` in place; each leaf is cast to its
+    parameter's dtype, so an MoE block's ``moe.w_router`` stays float32 in
+    a bf16 model, as in the JAX package."""
+    def put(leaf, node):
+        if isinstance(leaf, ParamLeaf):
+            leaf.assign(node if isinstance(node, torch.Tensor)
+                        else _tensor(node))
+        elif isinstance(leaf, dict):
+            for k, v in leaf.items():
+                put(v, node[k])
+        else:
+            for v, n in zip(leaf, node, strict=True):
+                put(v, n)
+
+    put(param_layout(params, cfg), tree)
+    return params
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Model:
     """The JAX package's parameter tree (nested dicts of numpy arrays; the
     stack as a list per segment of one block dict per pattern position, each
     leaf with a leading repeat dimension) as a :class:`Model` on ``device``
-    — how both packages compute on the same weights. Each leaf is copied
-    into its parameter's own dtype, so an MoE block's ``moe.w_router`` stays
-    float32 in a bf16 model, as in the JAX package."""
-    model = Model(cfg, None, torch.device(device))
-    where = transformer.layer_index(cfg)
+    — how both packages compute on the same weights."""
+    return load_params(Model(cfg, None, torch.device(device)), cfg, tree)
 
-    def leaf(node, path):
-        for k in path:
-            node = node[k]
-        return node
 
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            path = name.split(".")
-            if path[0] == "blocks":
-                si, r, pi = where[int(path[1])]
-                arr = leaf(tree["stack"][si][pi], path[2:])[r]
-            else:
-                arr = leaf(tree, path)
-            src = _tensor(arr)
-            if tuple(src.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(src.shape)} != "
-                                 f"{tuple(p.shape)}")
-            p.copy_(src.to(p.dtype))
-    return model
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; bf16 as an ``ml_dtypes`` bfloat16
+    array (the JAX package's numpy dtype)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_numpy(params: Model, cfg: ModelConfig) -> dict:
+    """The inverse of :func:`params_from_numpy`: the JAX package's parameter
+    tree of numpy arrays."""
+    return tree_map(to_numpy, params_tree(params, cfg))
 
 
 def _embed(params: Model, cfg: ModelConfig, tokens: torch.Tensor):
@@ -119,6 +225,30 @@ def _head(params: Model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(params.final_norm, x, cfg)
     table = params.embed if cfg.tie_embeddings else params.head
     return (x @ table.T).float()
+
+
+def train_loss(params: Model, cfg: ModelConfig, batch: dict,
+               router_bias: Optional[torch.Tensor] = None) -> TrainOut:
+    """Next-token cross-entropy in fp32 over ``batch["tokens"]`` (B, S) (the
+    VLM's patch prefix carries no labels), plus ``aux_loss_coef`` times the
+    Switch aux loss for an MoE in ``router_mode == "aux"``. The target
+    logit is gathered, where the JAX package contracts a (B, S, V) one-hot.
+    It runs the torch route, and takes no ``backend``: the kernels have no
+    backward."""
+    tokens = batch["tokens"]
+    x, plen = _inputs(params, cfg, batch)
+    x, load, aux, drop = transformer.apply_stack(
+        params.blocks, x, cfg, bias=router_bias, prefix_len=plen or None)
+    if plen:
+        x = x[:, plen:]
+    lg = _head(params, cfg, x)[:, :-1]                  # (B, S-1, V) fp32
+    targets = tokens[:, 1:].long()
+    correct = torch.gather(lg, -1, targets[..., None])[..., 0]
+    loss = (torch.logsumexp(lg, dim=-1) - correct).mean()
+    if cfg.router_mode == "aux" and cfg.num_experts:
+        loss = loss + cfg.aux_loss_coef * aux
+    return TrainOut(loss=loss, aux_loss=aux, load_frac=load, drop_frac=drop,
+                    logits_mean_abs=lg.detach().abs().mean())
 
 
 def penalize_logits(lg: torch.Tensor, spec: SamplingSpec,

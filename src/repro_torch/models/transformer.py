@@ -20,14 +20,20 @@ per slot.
 MoE stacks take ``bias``, the (num_layers, E) immune router bias: layer ``l``
 routes with row ``l``, and a ``truncate_stack`` draft, being the leading
 layers, takes the leading rows. ``attn_backend`` picks every hand-written
-kernel's route, the expert products' included (``layers.BACKENDS``).
+kernel's route, the expert products' included (``layers.BACKENDS``). The
+training pass (``apply_stack`` / ``apply_block``) takes no backend: it runs
+the torch route under autograd, each repeat of a segment's pattern wrapped
+by ``cfg.remat``.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
 from . import layers, moe, rglru, ssm
@@ -117,6 +123,86 @@ def _ffn_residual(blk: Block, x, cfg, bias, backend: str):
 
 def _row(bias, li: int):
     return None if bias is None else bias[li]
+
+
+def apply_block(blk: Block, x, cfg: ModelConfig, bias=None,
+                prefix_len: Optional[int] = None):
+    """Full-sequence (training) block on the torch route: no kernel lies on
+    it, as none lies on the JAX package's training path. Returns (x, the
+    MoE's ``MoEStats`` or None)."""
+    h = rmsnorm(blk.norm1, x, cfg)
+    if blk.kind == "ssm":
+        return x + ssm.ssm_block(blk.mixer, h, cfg), None
+    if blk.kind == "rglru":
+        x = x + rglru.rglru_block(blk.mixer, h, cfg)
+    else:
+        window = cfg.local_window if blk.kind == "local" else None
+        x = x + layers.attention(blk.mixer, h, cfg, window=window,
+                                 prefix_len=prefix_len)
+    h = rmsnorm(blk.norm2, x, cfg)
+    if hasattr(blk, "moe"):
+        y, stats = moe.moe_ffn(blk.moe, h, cfg, bias, backend="torch")
+        return x + y, stats
+    return x + layers.mlp(blk.mlp, h, cfg), None
+
+
+# the matmuls without batch dimensions (``x @ W``), which ``remat="dots"``
+# keeps, as jax.checkpoint_policies.dots_with_no_batch_dims_saveable does;
+# the attention einsums (``bmm``) and everything else are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``cfg.remat``: "full" recomputes the whole repeat in the backward,
+    "dots" keeps the matmul outputs and recomputes the rest."""
+    if cfg.remat == "full":
+        return partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return partial(checkpoint, fn, use_reentrant=False,
+                       context_fn=partial(create_selective_checkpoint_contexts,
+                                          _save_dots))
+    return fn
+
+
+def apply_stack(stack: nn.ModuleList, x, cfg: ModelConfig, bias=None,
+                prefix_len: Optional[int] = None):
+    """Full-sequence (training) pass. ``bias``: the (num_layers, E) immune
+    router bias. Each repeat of a segment's pattern is the unit ``cfg.remat``
+    wraps, as the JAX package's scan body is. Returns (x, load fractions
+    (num_layers, E) | None, aux loss, drop fraction), the last two the means
+    over the MoE layers (zero without experts)."""
+    blocks = list(stack)
+    loads, auxs, drops = [], [], []
+    li = 0
+    for pattern, reps in segments(cfg):
+        for _ in range(reps):
+            group = blocks[li:li + len(pattern)]
+            rows = [_row(bias, li + i) for i in range(len(pattern))]
+
+            def body(xc, group=group, rows=rows):
+                sts = []
+                for blk, b in zip(group, rows):
+                    xc, st = apply_block(blk, xc, cfg, b, prefix_len)
+                    if st is not None:
+                        sts.append(st)
+                return xc, sts
+
+            x, sts = _maybe_remat(body, cfg)(x)
+            for st in sts:
+                loads.append(st.load_frac)
+                auxs.append(st.aux_loss)
+                drops.append(st.drop_frac)
+            li += len(pattern)
+    if loads:
+        return (x, torch.stack(loads), torch.stack(auxs).mean(),
+                torch.stack(drops).mean())
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, None, zero, zero
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,

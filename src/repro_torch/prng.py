@@ -158,3 +158,113 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     go to the lower index, as ``jnp.argmax``)."""
     g = gumbel(keys, logits.shape[-1])
     return torch.argmax(g + logits, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# normal: XLA's single-precision erfinv of a uniform in (-1, 1)
+# ---------------------------------------------------------------------------
+# XLA's ErfInv32 (Giles' polynomial), its log1p (a Cephes rational for
+# |x| < sqrt(2) - 1, log(1 + x) beyond) and its CPU log (Cephes' logf), in
+# the order XLA evaluates them; every multiply-add that XLA's CPU backend
+# contracts into one fused multiply-add is one here too.
+_ERFINV_W_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+_LOG1P_NUM = (4.5270000862445199635215E-5, 4.9854102823193375972212E-1,
+              6.5787325942061044846969E0, 2.9911919328553073277375E1,
+              6.0949667980987787057556E1, 5.7112963590585538103336E1,
+              2.0039553499201281259648E1)
+_LOG1P_DEN = (1., 1.5062909083469192043167E1, 8.3047565967967209469434E1,
+              2.2176239823732856465394E2, 3.0909872225312059774938E2,
+              2.1642788614495947685003E2, 6.0118660497603843919306E1)
+_LOG_P = (7.0376836292E-2, -1.1514610310E-1, 1.1676998740E-1,
+          -1.2420140846E-1, 1.4249322787E-1, -1.6668057665E-1,
+          2.0000714765E-1, -2.4999993993E-1, 3.3333331174E-1)
+
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """a * b + c rounded once to float32: the float32 product is exact in
+    float64, so only the sum rounds (twice, which parts from one fused
+    rounding on about one input in 2**29)."""
+    a = a.double() if isinstance(a, torch.Tensor) else _f32(a)
+    b = b.double() if isinstance(b, torch.Tensor) else _f32(b)
+    c = c.double() if isinstance(c, torch.Tensor) else _f32(c)
+    return (a * b + c).float()
+
+
+def _horner_fma(coeffs, x: torch.Tensor) -> torch.Tensor:
+    r = torch.full_like(x, _f32(coeffs[0]))
+    for c in coeffs[1:]:
+        r = _fma(r, x, c)
+    return r
+
+
+def _log_xla(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``log`` of positive normal ``v`` as XLA's CPU backend
+    computes it (Cephes' logf: frexp, the sqrt(1/2) fold, a degree-8
+    polynomial)."""
+    bits = v.view(torch.int32)
+    e = ((bits >> 23) - 126).float()
+    x = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
+    small = x < _f32(0.707106781186547524)      # fold to [sqrt(1/2), sqrt 2)
+    fold = torch.where(small, x, torch.zeros_like(x))
+    x = x - 1.0
+    e = e - small.float()
+    x = x + fold
+    x2 = x * x
+    x3 = x2 * x
+    p = _LOG_P
+    y = _fma(x, p[0], p[1])
+    y1 = _fma(x, p[3], p[4])
+    y2 = _fma(x, p[6], p[7])
+    y = _fma(y, x, p[2])
+    y1 = _fma(y1, x, p[5])
+    y2 = _fma(y2, x, p[8])
+    y = _fma(y, x3, y1)
+    y = _fma(y, x3, y2)
+    y = _fma(y, x3, e * _f32(-2.12194440e-4))
+    x = _fma(-x2, 0.5, x)
+    x = x + y
+    return _fma(e, _f32(0.693359375), x)
+
+
+def _log1p_xla(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log1p`` as XLA computes it: a Cephes rational below
+    |x| = sqrt(2) - 1, ``log(1 + x)`` above (x > -1)."""
+    x2 = x * x
+    r = _horner_fma(_LOG1P_NUM, x) / _horner_fma(_LOG1P_DEN, x)
+    small = _fma(-0.5, x2, (x * x2) * r)
+    small = x + small
+    return torch.where(x.abs() < _f32(0.41421356237309504880), small,
+                       _log_xla(torch.clamp(x + 1.0,
+                                            min=float(np.finfo(np.float32)
+                                                      .tiny))))
+
+
+def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``lax.erf_inv`` for x in [-1, 1] (XLA's ErfInv32)."""
+    w = -_log1p_xla(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _f32(_ERFINV_W_LT5[0]), _f32(_ERFINV_W_GE5[0]))
+    for a, b in zip(_ERFINV_W_LT5[1:], _ERFINV_W_GE5[1:]):
+        p = _fma(p, w, torch.where(lt, _f32(a), _f32(b)))
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+def normal(keys: torch.Tensor, shape) -> torch.Tensor:
+    """float32 ``jax.random.normal`` of ``shape`` per key: keys (..., 2) ->
+    (..., *shape). A uniform in (-1, 1), then ``sqrt(2) * erfinv(u)``."""
+    shape = tuple(shape)
+    n = int(np.prod(shape, dtype=np.int64))
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(keys, n, minval=lo, maxval=1.0)
+    z = _f32(np.sqrt(2.0)) * erfinv_xla(u)
+    return z.reshape(keys.shape[:-1] + shape)

@@ -38,6 +38,7 @@ def topk_logprobs(logits: torch.Tensor, k: int):
     return torch.topk(lp, k, dim=-1)
 
 
+@torch.no_grad()
 def generate(params, cfg: ModelConfig, prompts: dict, max_cache: int,
              steps: int, sampling: Optional[model.SamplingSpec] = None,
              return_logits: bool = False, return_logprobs: bool = False,

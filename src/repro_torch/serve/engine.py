@@ -1141,10 +1141,12 @@ class Engine:
             self._retire_corrupted(slot)
 
     # -- one tick ------------------------------------------------------------
+    @torch.no_grad()
     def step(self):
         """One engine tick: admit into free slots, land a prefill chunk,
         decode one token for every active slot, retire finished sequences,
-        advance the immune states."""
+        advance the immune states. Under no-grad: the model may be one a
+        trainer left with gradients on, and the kernels have no backward."""
         self._admit()
         self._prefill_tick()
         self.concurrency_hw = max(self.concurrency_hw,

@@ -3,8 +3,9 @@
 grid step), the verify kernel at Sq = 1 against the decode kernel, the
 engine (plain and speculative, dense and MoE) on the card against its own
 one-shot oracle, a fleet under a crash against its fault-free run, a warm
-snapshot's K/V round trip, and the VLSI extraction on the card against the
-port's CPU run.
+snapshot's K/V round trip, the VLSI extraction on the card against the
+port's CPU run, the wrappers' refusal of inputs that require grad, and a
+killed training run resuming bitwise on the card.
 
 Marked ``cuda``; each test decides inside itself whether a card is visible
 and skips otherwise (never at import time). This file imports no JAX, so it
@@ -613,3 +614,72 @@ def test_scheduler_on_card_matches_cpu(card):
         got = scheduler.simulate(trace, static=static, device=card).cpu()
         ref = scheduler.simulate(trace, static=static, device="cpu")
         torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the kernels have no backward; training runs without them
+# ---------------------------------------------------------------------------
+def _wrapper_calls(device, requires_grad: bool) -> dict:
+    """One call of each kernel wrapper at a small shape, the float inputs
+    made to require grad when asked."""
+    g = torch.Generator().manual_seed(0)
+
+    def t(*shape, dtype=torch.float32):
+        x = torch.randn(shape, generator=g, dtype=dtype).to(device)
+        return x.requires_grad_(requires_grad)
+
+    table = torch.arange(1, 5, dtype=torch.int32, device=device)[None]
+    lengths = torch.tensor([30], dtype=torch.int32, device=device)
+    pos = torch.tensor([20], dtype=torch.int32, device=device)
+    sizes = torch.tensor([3, 0], dtype=torch.int32, device=device)
+    return {
+        "flash_attention": lambda: flash_attention(t(1, 4, 9, 16),
+                                                   t(1, 2, 9, 16),
+                                                   t(1, 2, 9, 16)),
+        "paged_attention": lambda: paged_attention(
+            t(1, 4, 16), t(5, 8, 2, 16), t(5, 8, 2, 16), table, lengths),
+        "paged_attention_verify": lambda: paged_attention_verify(
+            t(1, 3, 4, 16), t(5, 8, 2, 16), t(5, 8, 2, 16), table, pos),
+        "moe_gmm": lambda: moe_gmm(t(2, 4, 8), t(2, 8, 16), sizes),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "paged_attention",
+                                  "paged_attention_verify", "moe_gmm"])
+def test_kernel_wrappers_refuse_inputs_that_require_grad(card, name):
+    """On CUDA tensors a wrapper would return an output with no grad_fn:
+    under grad mode it raises instead; under no_grad, or without
+    requires_grad, it launches."""
+    with pytest.raises(RuntimeError, match="no backward"):
+        _wrapper_calls(card, True)[name]()
+    with torch.no_grad():
+        _wrapper_calls(card, True)[name]()
+    _wrapper_calls(card, False)[name]()
+    torch.cuda.synchronize()
+
+
+def test_trainer_on_card_resumes_bitwise_without_kernels(card, tmp_path):
+    """A killed smoke run resumes bitwise on the card, and training
+    launches no kernel."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer
+    cfg = configs.get_config("granite-moe-3b-a800m").smoke()
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=2, decay_steps=100)
+    wrappers = (flash_attention, paged_attention, paged_attention_verify,
+                moe_gmm, grid_step)
+    before = [w.launches for w in wrappers]
+
+    def mk(sub, **kw):
+        return Trainer(cfg=cfg, tcfg=tcfg, workdir=str(tmp_path / sub),
+                       batch=4, seq=32, ckpt_every=4, device="cuda", **kw)
+
+    state_a = mk("a").train(10)
+    with pytest.raises(RuntimeError, match="injected node failure"):
+        mk("b", failure_at=6).train(10)
+    state_b = mk("b").train(10)
+    la, _ = ckpt.flatten(ts.state_tree(state_a, cfg))
+    lb, _ = ckpt.flatten(ts.state_tree(state_b, cfg))
+    assert all(torch.equal(a, b) for a, b in zip(la, lb, strict=True))
+    assert [w.launches for w in wrappers] == before

@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import pytest
@@ -110,15 +111,17 @@ class TestDevices:
     @pytest.mark.parametrize("flag", ["--replicas", "--faults", "--journal",
                                       "--restore"])
     def test_later_slices_rejected(self, flag, capsys):
-        """Only ``--restore`` still waits for its slice; the fleet flags
-        arrived with slice 6 and parse (a bad value is refused as such)."""
+        """No flag waits for a later slice any more: ``--restore`` arrived
+        with slice 7 (a workdir with no checkpoint is refused as such), the
+        fleet flags with slice 6 (a bad value is refused as such)."""
+        assert not hasattr(launch_serve, "LATER")
         if flag == "--restore":
-            with pytest.raises(SystemExit):
-                launch_serve.main(["--arch", "smollm-360m", "--smoke",
-                                   "--stream", "--device", "cpu", flag, "x"])
-            assert "not ported yet" in capsys.readouterr().err
+            with tempfile.TemporaryDirectory() as empty:
+                with pytest.raises(SystemExit, match="no usable checkpoint"):
+                    launch_serve.main(["--arch", "smollm-360m", "--smoke",
+                                       "--device", "cpu", flag, empty])
+            assert "not ported yet" not in capsys.readouterr().err
             return
-        assert list(launch_serve.LATER) == ["restore"]
         value = {"--replicas": "3", "--faults": "crash@8:r1",
                  "--journal": "serve.wal"}[flag]
         args = launch_serve.build_parser().parse_args(
