@@ -221,7 +221,22 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    bias moved off zero, per-step load CV and drop fraction printed. All
    five kernel wrappers' launch counts read 0 across the phase.
 
-Phases 3-10 each set every launch count to 0 just before they drive their
+11. The mesh (``repro_torch.dist.sharding``, ``launch.mesh``,
+   ``launch.dryrun``), with no kernel on its path: (a) ``make_host_mesh()``
+   on the card — one NCCL rank, a 1 x 1 ('data', 'model') mesh — and the
+   card's memory beside the dry-run's 80 GB constant; (b) full-width
+   smollm-360m params and AdamW state, and granite-moe-3b-a800m params at
+   ``MOE_LAYERS`` with expert parallel, placed by the sharding rules: every
+   leaf a CUDA DTensor whose local shard is ``torch.equal`` to the plain
+   leaf; (c) ``serve_step`` on the placed smollm-360m against the plain
+   model, bf16, B = 8, a dense cache of 1,024, 16 greedy steps: tokens
+   equal, logits ``torch.equal`` (if not, the largest gap is printed and
+   held at phase 3's rtol = atol = 1e-1); (d) ``python -m
+   repro_torch.launch.dryrun --arch smollm-360m --shape decode_32k``, and
+   with ``--multi-pod``, in subprocesses: every record ``ok`` with 256 /
+   512 chips, the key terms printed.
+
+Phases 3-11 each set every launch count to 0 just before they drive their
 path and read the counts just after. Phases 3 and 9 and every phase-8 model
 but recurrentgemma-9b run at full depth; phases 4-6 and recurrentgemma-9b
 at the depths above, so the whole run stays well inside 1,200 s.
@@ -2620,6 +2635,211 @@ def train_phase(torch, configs, seed: int, counters: dict) -> dict:
     return rep
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the mesh — host mesh, placement, serve_step on DTensors, dry-run
+# ---------------------------------------------------------------------------
+MESH_BATCH, MESH_CACHE, MESH_STEPS = 8, 1024, 16
+MESH_TOL = 1e-1                          # phase 3's bf16 rule, if not bitwise
+
+
+def placed_equal(torch, shd, tree, plain_leaves, specs, mesh, cfg=None):
+    """Place ``tree`` (a copy of the plain one) with ``specs``; every leaf
+    must be a CUDA DTensor whose local shard is ``torch.equal`` to the
+    plain leaf (a 1 x 1 mesh holds every tensor whole). Returns the
+    placed tree and the count of leaves."""
+    from torch.distributed.tensor import DTensor
+    placed = shd.place(tree, specs, mesh, cfg)
+    leaves = list(placed.parameters()) if cfg is not None \
+        else shd_leaves(placed)
+    check(len(leaves) == len(plain_leaves),
+          f"mesh: {len(leaves)} placed leaves of {len(plain_leaves)}")
+    for a, b in zip(leaves, plain_leaves):
+        check(isinstance(a, DTensor) and a.device.type == "cuda",
+              f"mesh: a placed leaf is {type(a).__name__} on {a.device}")
+        check(torch.equal(a.to_local(), b),
+              "mesh: a placed leaf's local shard differs from the plain leaf")
+    return placed, len(leaves)
+
+
+def shd_leaves(tree) -> list:
+    from repro_torch.dist.checkpoint import flatten
+    return flatten(tree)[0]
+
+
+def mesh_phase(torch, configs, seed: int, counters: dict) -> dict:
+    """Phase 11. (a) the host mesh on the card: one rank, NCCL, the card's
+    memory beside the dry-run's constant. (b) full-width smollm-360m params
+    and AdamW state and granite-moe-3b-a800m params at ``MOE_LAYERS``
+    (expert parallel) placed by the sharding rules: CUDA DTensors whose
+    local shards equal the plain leaves. (c) ``serve_step`` on the placed
+    smollm-360m against the plain one, bf16, B = 8, a dense cache of 1,024,
+    16 greedy steps: tokens equal and logits ``torch.equal`` (else the
+    largest gap is reported and held at phase 3's rule). (d) the dry-run of
+    smollm-360m ``decode_32k`` on both production meshes in subprocesses.
+    No kernel launches in the phase: ``serve_step`` runs the torch
+    route."""
+    import copy
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve import decode
+    from repro_torch.train import train_step as ts
+    rep = {}
+    reset_counts(counters)
+
+    # -- 11a ------------------------------------------------------------------
+    mesh = make_host_mesh()
+    total = torch.cuda.get_device_properties(0).total_memory
+    rep["host_mesh"] = {"mesh": str(mesh), "backend": dist.get_backend(),
+                        "world_size": dist.get_world_size(),
+                        "device_type": mesh.device_type,
+                        "total_memory_bytes": total,
+                        "dryrun_hbm_bytes": dryrun.HBM_BYTES}
+    check(mesh.device_type == "cuda" and dist.get_backend() == "nccl"
+          and dist.get_world_size() == 1,
+          f"mesh: the host mesh is not one NCCL rank on the card: "
+          f"{rep['host_mesh']}")
+    print(f"host mesh: {mesh} backend {dist.get_backend()} world "
+          f"{dist.get_world_size()}; card memory {total} B beside the "
+          f"dry-run's {dryrun.HBM_BYTES:.0f} B")
+    layers.set_mesh_axes(mesh)
+
+    # -- 11b ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    cfg = configs.get_config("smollm-360m")
+    pcfg = ParallelConfig()
+    state = ts.init_train_state(
+        torch.Generator(device="cuda").manual_seed(seed), cfg, TrainConfig(),
+        device="cuda")
+    plain_state = state._replace(params=None)
+    placed = copy.deepcopy(state)
+    specs = shd.train_state_shardings(placed, cfg, mesh, pcfg)
+    _, n_params = placed_equal(torch, shd, placed.params,
+                               list(state.params.parameters()),
+                               specs.params, mesh, cfg)
+    _, n_state = placed_equal(torch, shd, placed._replace(params=None),
+                              shd_leaves(plain_state),
+                              specs._replace(params=None), mesh)
+    del placed, plain_state
+    mcfg = dataclasses.replace(configs.get_config(MOE_ARCH),
+                               num_layers=MOE_LAYERS)
+    moe_plain = model_lib.init_params(
+        mcfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    moe_specs = shd.param_shardings(moe_plain, mcfg, mesh, pcfg)
+    check(moe_specs["stack"][0][0]["moe"]["w_gate"][1] == "model",
+          "mesh: granite's experts are not expert-parallel")
+    _, n_moe = placed_equal(torch, shd, copy.deepcopy(moe_plain),
+                            list(moe_plain.parameters()), moe_specs, mesh,
+                            mcfg)
+    del moe_plain
+    torch.cuda.synchronize()
+    rep["placement"] = {"smollm_params": n_params, "smollm_state": n_state,
+                        "granite_params": n_moe, "granite_layers": MOE_LAYERS,
+                        "s": time.perf_counter() - t0}
+
+    # -- 11c ------------------------------------------------------------------
+    plain = state.params.requires_grad_(False)
+    del state
+    torch.cuda.empty_cache()
+    meshed = shd.place(copy.deepcopy(plain), shd.param_shardings(
+        plain, cfg, mesh, pcfg), mesh, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    first = torch.randint(0, cfg.vocab_size, (MESH_BATCH, 1), generator=gen,
+                          device="cuda", dtype=torch.int32)
+
+    def greedy_run(params, placed_run: bool):
+        cache = model_lib.init_cache(cfg, MESH_BATCH, MESH_CACHE, "cuda")
+        tok = first
+        if placed_run:
+            cache = shd.place(cache, shd.cache_shardings(cache, cfg, mesh,
+                                                         pcfg), mesh)
+        toks, logits = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for _ in range(MESH_STEPS):
+                batch = {"token": tok}
+                if placed_run:
+                    batch = shd.place(batch, shd.batch_shardings(
+                        batch, mesh, pcfg), mesh)
+                lg, cache = decode.serve_step(params, cfg, batch, cache)
+                if placed_run:
+                    lg = lg.full_tensor()
+                logits.append(lg)
+                tok = decode.greedy(lg)
+                toks.append(tok)
+        torch.cuda.synchronize()
+        return (torch.cat(toks, 1), torch.stack(logits),
+                time.perf_counter() - t0)
+
+    reset_counts(counters)
+    p_tok, p_lg, p_s = greedy_run(plain, False)
+    m_tok, m_lg, m_s = greedy_run(meshed, True)
+    n = {name: fn.launches for name, fn in counters.items()}
+    check(not any(n.values()), f"phase 11 launched kernels: {n}")
+    bitwise = bool(torch.equal(p_lg, m_lg))
+    gap = float((p_lg - m_lg).abs().max())
+    tokens_equal = bool(torch.equal(p_tok, m_tok))
+    if not bitwise:
+        ref = p_lg.double()
+        check(bool(((m_lg.double() - ref).abs()
+                    <= MESH_TOL + MESH_TOL * ref.abs()).all()),
+              f"mesh serve_step: logits beyond rtol = atol = {MESH_TOL} "
+              f"(max gap {gap})")
+    rep["serve_step"] = {"batch": MESH_BATCH, "cache": MESH_CACHE,
+                         "steps": MESH_STEPS, "dtype": cfg.dtype,
+                         "tokens_equal": tokens_equal,
+                         "logits_bitwise": bitwise, "max_gap": gap,
+                         "plain_s": p_s, "dtensor_s": m_s, "launches": n}
+    check(tokens_equal, f"mesh serve_step: tokens differ (max logit gap "
+          f"{gap})")
+    del meshed, plain, p_lg, m_lg
+    layers.set_mesh_axes(None)
+    torch.cuda.empty_cache()
+
+    # -- 11d ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_dry_")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    runs = []
+    for extra in ([], ["--multi-pod"]):            # both at once
+        out = os.path.join(work, f"d{len(runs)}.jsonl")
+        runs.append((out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "smollm-360m", "--shape", "decode_32k", "--out", out] + extra,
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    recs = []
+    try:
+        for out, proc in runs:
+            _, err = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"dry-run: exit {proc.returncode}: "
+                  f"{err[-1500:]}")
+            with open(out) as f:
+                recs += [json.loads(line) for line in f]
+    finally:
+        for _, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    check([(r["status"], r["chips"]) for r in recs]
+          == [("ok", 256), ("ok", 512)], f"dry-run records: {recs}")
+    keys = ("mesh", "chips", "flops_per_device", "hbm_bytes_per_device",
+            "state_bytes_per_device", "collective_bytes_per_device",
+            "collective_by_kind", "t_compute_s", "t_memory_s",
+            "t_collective_s", "dominant", "roofline_frac",
+            "torch_flops_per_device", "memory", "fits_hbm", "compile_s")
+    rep["dryrun"] = {"records": [{k: r[k] for k in keys} for r in recs],
+                     "s": time.perf_counter() - t0}
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="on-card smoke of the port")
     ap.add_argument("--seed", type=int, default=0)
@@ -2878,6 +3098,12 @@ def main() -> int:
     train_rep = train_phase(torch, configs, args.seed,
                             {**counters, "grid_step": grid_step})
     print("training: " + json.dumps(train_rep))
+
+    phase_start["11"] = time.perf_counter()
+    # -- phase 11: the mesh ---------------------------------------------------
+    mesh_rep = mesh_phase(torch, configs, args.seed,
+                          {**counters, "grid_step": grid_step})
+    print("mesh: " + json.dumps(mesh_rep))
 
     kernels = [
         {"name": "paged_attention", "route": "cuda",

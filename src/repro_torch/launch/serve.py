@@ -58,6 +58,8 @@ import torch
 from repro_torch import configs, prng
 from repro_torch.configs.base import TrainConfig
 from repro_torch.dist import checkpoint as ckpt
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import layers
 from repro_torch.models import model as model_lib
 from repro_torch.serve import decode, durability
 from repro_torch.serve import engine as eng_mod
@@ -351,6 +353,7 @@ def main(argv=None):
     cfg = configs.get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    layers.set_mesh_axes(make_host_mesh(device=args.device))
     if args.restore:
         params, bias = restore(args, cfg)
     else:

@@ -6,8 +6,9 @@ auto-resume and the immune MoE balancing, on one device.
 
 ``--smoke`` trains the reduced config; without it the full config is built
 (on the card). Runs on ``cuda`` unless ``--device cpu`` is given. Re-running
-with the same ``--workdir`` resumes from its newest checkpoint. There is no
-mesh: the port's sharding hooks stay no-ops until its distribution slice.
+with the same ``--workdir`` resumes from its newest checkpoint. The host
+mesh is declared (``launch.mesh.make_host_mesh``); the parameters stay plain
+tensors, so every constraint is a no-op, as in the JAX launcher.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import torch
 
 from repro_torch import configs
 from repro_torch.configs.base import TrainConfig
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import layers
 from repro_torch.train.trainer import Trainer
 
 
@@ -40,6 +43,7 @@ def main(argv=None):
     cfg = configs.get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    layers.set_mesh_axes(make_host_mesh(device=args.device))
     tcfg = TrainConfig(learning_rate=args.lr,
                        warmup_steps=max(args.steps // 20, 5),
                        decay_steps=args.steps, schedule=args.schedule)

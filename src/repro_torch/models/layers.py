@@ -20,12 +20,17 @@ Conventions:
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import (implicit_replication,
+                                                  local_map)
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import flash_attention
@@ -47,17 +52,158 @@ def check_backend(backend: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# sharding hooks: single-device port, so both are no-ops until slice 8
+# mesh-aware activation sharding constraints
 # ---------------------------------------------------------------------------
+DP = ("pod", "data")   # logical data-parallel axes (filtered to the live mesh)
+
+# Axis names / sizes of the launcher's mesh, and the DeviceMesh itself.
+# Launchers (dryrun, train, serve) declare their mesh with set_mesh_axes();
+# CPU unit tests leave this empty and every constraint is a no-op.
+_MESH_AXES: dict[str, int] = {}
+_MESH: Optional[DeviceMesh] = None
+
+
+def set_mesh_axes(mesh_or_axes, sizes=None) -> None:
+    """Record the mesh the constraints read: a ``DeviceMesh`` (names and
+    sizes), axis names with ``sizes``, or names alone (sizes unknown: no
+    divisibility check); ``None`` or ``()`` clears it. Touches no device."""
+    global _MESH_AXES, _MESH
+    if isinstance(mesh_or_axes, DeviceMesh):
+        _MESH = mesh_or_axes
+        _MESH_AXES = dict(zip(mesh_or_axes.mesh_dim_names,
+                              mesh_or_axes.shape))
+        return
+    _MESH = None
+    axes = tuple(mesh_or_axes or ())
+    if sizes is not None:
+        _MESH_AXES = dict(zip(axes, tuple(sizes)))
+    else:
+        _MESH_AXES = {a: 0 for a in axes}
+
+
+def _current_axes() -> dict[str, int]:
+    return _MESH_AXES
+
+
 def guard_entry(s, dim: int, axes: dict):
-    """The axis-drop policy of the JAX package's sharding rules; with no mesh
-    every entry is dropped."""
-    return None
+    """One partition-spec entry of the shared axis-drop policy.
+
+    This is THE guard: the activation constraints here and
+    ``dist.sharding``'s parameter rules both use it, so the two layouts
+    cannot drift. Axis names the mesh doesn't have are dropped; an entry
+    whose surviving axes' total size doesn't divide the dim it would split
+    is dropped whole. Axis sizes recorded as 0 mean "unknown" and skip the
+    divisibility check. Returns None, an axis name, or a tuple of names."""
+    if s is None:
+        return None
+    is_seq = isinstance(s, (tuple, list))
+    cand = tuple(a for a in (s if is_seq else (s,)) if a in axes)
+    if not cand:
+        return None
+    size, known = 1, True
+    for a in cand:
+        if axes[a]:
+            size *= axes[a]
+        else:
+            known = False
+    if known and dim % size != 0:
+        return None
+    return cand if is_seq else cand[0]
+
+
+def guard_spec(shape, *spec) -> tuple:
+    """``spec`` guarded entry by entry against ``shape`` on the current
+    mesh."""
+    axes = _current_axes()
+    return tuple(guard_entry(s, d, axes) for s, d in zip(spec, shape))
+
+
+def placements(spec, mesh: DeviceMesh) -> tuple:
+    """DTensor placements of a (guarded) partition spec: each mesh dim is
+    ``Shard(i)`` of the tensor dim whose entry names it, else
+    ``Replicate()``. A mesh dim of size 1 holds every tensor whole either
+    way, and is ``Replicate()``: DTensor's view rules would otherwise
+    refuse to merge a dim "sharded" over it."""
+    out = []
+    for name, size in zip(mesh.mesh_dim_names, mesh.shape):
+        dims = [i for i, s in enumerate(spec) if s is not None
+                and name in (s if isinstance(s, (tuple, list)) else (s,))]
+        out.append(Shard(dims[0]) if dims and size > 1 else Replicate())
+    return tuple(out)
+
+
+def is_dtensor(x) -> bool:
+    return isinstance(x, DTensor)
 
 
 def constrain(x: torch.Tensor, *spec) -> torch.Tensor:
-    """Activation sharding constraint; a no-op on one device."""
-    return x
+    """The sharding constraint: a no-op outside a mesh and on plain tensors;
+    a ``DTensor`` is redistributed to the placements of the guarded
+    ``spec`` (an all-``None`` guarded spec leaves it as it is)."""
+    if not _MESH_AXES or not isinstance(x, DTensor):
+        return x
+    filtered = guard_spec(x.shape, *spec)
+    if all(s is None for s in filtered):
+        return x
+    return reshard(x, filtered)
+
+
+def as_dtensor(x: torch.Tensor, mesh: DeviceMesh, target) -> DTensor:
+    """``x`` with the DTensor ``placements`` ``target``: a plain tensor is
+    taken as replicated (it is the same on every rank) and sliced locally."""
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    if tuple(x.placements) == tuple(target):
+        return x
+    return x.redistribute(mesh, tuple(target))
+
+
+def view(x: torch.Tensor, *shape) -> torch.Tensor:
+    """``x.reshape(*shape)``; a DTensor's result is pinned (re-wrapped from
+    its local tensor), so its backward first redistributes the gradient to
+    the forward's layout. A reshape's backward views the incoming gradient
+    the other way, and DTensor refuses (or mis-sizes) that view when the
+    gradient arrives sharded on a dim the forward left whole."""
+    y = x.reshape(*shape)
+    if not isinstance(y, DTensor):
+        return y
+    return DTensor.from_local(y.to_local(), y.device_mesh, y.placements,
+                              run_check=False)
+
+
+def local_apply(fn, args: tuple, specs: tuple, out_specs: tuple):
+    """``fn`` on each rank's shards (``local_map``): every tensor of
+    ``args`` is put on the placements of its guarded spec in ``specs``
+    (a plain tensor taken as replicated; ``None`` args pass through) and
+    the outputs are assembled with ``out_specs``. For math that is local
+    once its batch and head dims are split, which DTensor's own
+    propagation would otherwise split unevenly."""
+    mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
+    ins = tuple(None if a is None else placements(sp, mesh)
+                for a, sp in zip(args, specs))
+    args = tuple(None if a is None else as_dtensor(a, mesh, p)
+                 for a, p in zip(args, ins))
+    outs = tuple(placements(sp, mesh) for sp in out_specs)
+    return local_map(fn, out_placements=outs, in_placements=ins,
+                     device_mesh=mesh)(*args)
+
+
+def reshard(x: torch.Tensor, spec) -> torch.Tensor:
+    """A DTensor redistributed to exactly the placements of the guarded
+    ``spec`` (all-``None`` replicates it); a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return as_dtensor(x, x.device_mesh, placements(spec, x.device_mesh))
+
+
+def under_mesh():
+    """The context the model runs in: with a mesh recorded, plain tensors
+    the model makes (positions, masks, RoPE frequencies) meet DTensors as
+    replicated ones (``implicit_replication``); else nothing."""
+    if _MESH is None:
+        return contextlib.nullcontext()
+    return implicit_replication()
 
 
 # ---------------------------------------------------------------------------
@@ -150,19 +296,42 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
+def _heads(y: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd) under the constraint (DP, None,
+    'model', None). The projection takes the guarded head entry before the
+    reshape: a DTensor cannot unflatten a dim split unevenly over the heads
+    (GSPMD pads such a split; here the guard has already dropped it)."""
+    b, s, _ = y.shape
+    spec = guard_spec((b, s, n, hd), DP, None, "model", None)
+    y = reshard(y, spec[:3]) if _MESH_AXES else y
+    return constrain(view(y, b, s, n, hd), DP, None, "model", None)
+
+
 def _qkv(params: Attention, x: torch.Tensor, cfg: ModelConfig,
          positions: torch.Tensor):
     b, s, _ = x.shape
     h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params.wq).reshape(b, s, h, hd)
-    k = (x @ params.wk).reshape(b, s, hk, hd)
-    v = (x @ params.wv).reshape(b, s, hk, hd)
+    # heads shard over 'model' where they divide it; kv heads follow q heads
+    q = _heads(x @ params.wq, h, hd)
+    k = _heads(x @ params.wk, hk, hd)
+    v = _heads(x @ params.wv, hk, hd)
     if cfg.qk_norm:
         q = rmsnorm(params.q_norm, q, cfg)
         k = rmsnorm(params.k_norm, k, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _group_heads(q: torch.Tensor, hk: int) -> torch.Tensor:
+    """q (B, S, H, D) ready to view as (B, S, Hk, G, D): under a mesh its
+    heads shard over 'model' exactly where the kv heads do (GQA groups stay
+    co-located); a DTensor cannot split a head dim sharded wider than Hk."""
+    if not (_MESH_AXES and isinstance(q, DTensor)):
+        return q
+    b, s, h, hd = q.shape
+    spec = guard_spec((b, s, hk, h // hk, hd), DP, None, "model", None, None)
+    return reshard(q, spec[:3] + (None,))
 
 
 def _sdpa(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
@@ -172,14 +341,14 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig) -> torch.Tensor:
     b, sq, h, hd = q.shape
     hk = k.shape[2]
     g = h // hk
-    q = q.reshape(b, sq, hk, g, hd)
+    q = view(_group_heads(q, hk), b, sq, hk, g, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", q, k).float()
     scores = scores / math.sqrt(hd)
     scores = torch.where(mask[:, None, None, :, :], scores,
                          torch.tensor(NEG_INF, device=q.device))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
-    return out.reshape(b, sq, h * hd)
+    return view(out, b, sq, h * hd)
 
 
 def _window_prefix(m: torch.Tensor, qpos: torch.Tensor, kpos: torch.Tensor,
@@ -226,7 +395,8 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig, window: Optional[int] = None,
     hk = k.shape[2]
     g = h // hk
     cq, ckv = min(q_chunk, s), min(kv_chunk, s)
-    qt = q.reshape(b, s, hk, g, hd).permute(0, 2, 3, 1, 4)    # (B,K,G,S,D)
+    qt = view(_group_heads(q, hk), b, s, hk, g, hd) \
+        .permute(0, 2, 3, 1, 4)                                # (B,K,G,S,D)
     kt = k.permute(0, 2, 1, 3)                                 # (B,K,S,D)
     vt = v.permute(0, 2, 1, 3)
     scale = 1.0 / math.sqrt(hd)
@@ -256,7 +426,7 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig, window: Optional[int] = None,
             m_run = m_new
         blocks.append(acc / l_run.clamp_min(1e-30)[..., None])
     out = torch.cat(blocks, dim=3)                             # (B,K,G,S,D)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h * hd)
+    out = view(out.permute(0, 3, 1, 2, 4), b, s, h * hd)
     return out.to(v.dtype)
 
 
@@ -295,17 +465,39 @@ def causal_mask(sq: int, skv: int, window: Optional[int] = None,
     return _window_prefix(kpos <= qpos, qpos, kpos, window, prefix_len)[None]
 
 
+def write_cache_(dst: torch.Tensor, fn, values=(), indices=()):
+    """``fn(dst, *values, *indices)`` writes into the cache tensor ``dst`` in
+    place. A DTensor cache is written shard by shard: the values take
+    ``dst``'s placements (a cache and its new rows share the batch and
+    kv-head split), the indices are replicated — the writes are local, and
+    no index op needs a sharding rule. ``None`` passes through."""
+    if not isinstance(dst, DTensor):          # a plain cache takes values whole
+        fn(dst, *[v.full_tensor() if isinstance(v, DTensor) else v
+                  for v in values], *indices)
+        return dst
+    mesh = dst.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    fn(dst.to_local(),
+       *[as_dtensor(v, mesh, dst.placements).to_local() for v in values],
+       *[None if i is None else as_dtensor(i, mesh, rep).to_local()
+         for i in indices])
+    return dst
+
+
 def masked_copy_(dst: torch.Tensor, src: torch.Tensor,
                  active: Optional[torch.Tensor]) -> torch.Tensor:
     """dst <- src in place; rows (dim 0) where ``active`` is False keep
     their values — the freeze of inactive slots' slot-row caches (recurrent
     state, ring buffers), which the JAX package applies to the new cache it
     returns."""
-    src = src.to(dst.dtype)
-    if active is not None:
-        src = torch.where(active.reshape((-1,) + (1,) * (src.dim() - 1)),
-                          src, dst)
-    return dst.copy_(src)
+    def put(dst, src, active):
+        src = src.to(dst.dtype)
+        if active is not None:
+            src = torch.where(active.reshape((-1,) + (1,) * (src.dim() - 1)),
+                              src, dst)
+        dst.copy_(src)
+
+    return write_cache_(dst, put, (src,), (active,))
 
 
 def attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -335,12 +527,14 @@ def attention_prefill(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     out = _sdpa_dispatch(q, k, v, cfg, backend, window, prefix_len)
     s_max = cache["k"].shape[1]
     if window is not None and s > s_max:
-        slots = torch.arange(s - s_max, s, device=x.device) % s_max
-        cache["k"][:, slots] = k[:, -s_max:]
-        cache["v"][:, slots] = v[:, -s_max:]
+        def put(dst, new):
+            slots = torch.arange(s - s_max, s, device=dst.device) % s_max
+            dst[:, slots] = new[:, -s_max:]
     else:
-        cache["k"][:, :min(s, s_max)] = k[:, :s_max]
-        cache["v"][:, :min(s, s_max)] = v[:, :s_max]
+        def put(dst, new):
+            dst[:, :min(s, s_max)] = new[:, :s_max]
+    write_cache_(cache["k"], put, (k,))
+    write_cache_(cache["v"], put, (v,))
     return out @ params.wo, cache
 
 
@@ -361,16 +555,22 @@ def attention_decode(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     s_max = cache["k"].shape[1]
     slot = pos.long() % s_max if window is not None else pos.long()
     if per_slot:
-        rows = torch.arange(b, device=x.device)
-        for name, new in (("k", k[:, 0]), ("v", v[:, 0])):
+        def put(dst, new, slot, active):
+            rows = torch.arange(dst.shape[0], device=dst.device)
+            new = new[:, 0]
             if active is not None:
-                new = torch.where(active[:, None, None], new,
-                                  cache[name][rows, slot])
-            cache[name][rows, slot] = new
+                new = torch.where(active[:, None, None], new, dst[rows, slot])
+            dst[rows, slot] = new
+
+        for name, new in (("k", k), ("v", v)):
+            write_cache_(cache[name], put, (new,), (slot, active))
         qref, sref = pos[:, None], slot[:, None]
     else:
-        cache["k"].index_copy_(1, slot.reshape(1), k)
-        cache["v"].index_copy_(1, slot.reshape(1), v)
+        def put(dst, new, slot):
+            dst.index_copy_(1, slot.reshape(1), new)
+
+        write_cache_(cache["k"], put, (k,), (slot,))
+        write_cache_(cache["v"], put, (v,), (slot,))
         qref, sref = pos.reshape(1, 1), slot.reshape(1, 1)
     kpos = torch.arange(s_max, device=x.device)[None, :]
     if window is not None:
@@ -546,4 +746,5 @@ def attention_prefill_paged_multi(params: Attention, x: torch.Tensor,
 def mlp(params: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     gate = x @ params.w_gate
     act = F.silu(gate) if cfg.act == "silu" else F.gelu(gate, approximate="tanh")
-    return (act * (x @ params.w_up)) @ params.w_down
+    return constrain(act * (x @ params.w_up), DP, None, "model") \
+        @ params.w_down

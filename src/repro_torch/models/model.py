@@ -16,11 +16,15 @@ repeat dimension: what the optimizer and the checkpoints see.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from .. import prng
 from ..configs.base import ModelConfig
@@ -215,18 +219,69 @@ def params_to_numpy(params: Model, cfg: ModelConfig) -> dict:
 
 
 def _embed(params: Model, cfg: ModelConfig, tokens: torch.Tensor):
-    x = params.embed[tokens.long()]
+    # gather the (possibly fsdp-sharded) table at use, keep activations on DP
+    table = layers.constrain(params.embed, "model", None)
+    if layers.is_dtensor(table):
+        x = F.embedding(tokens.long(), table)   # the vocab-parallel lookup
+    else:
+        x = table[tokens.long()]
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
-    return x
+    return layers.constrain(x, layers.DP, None, None)
 
 
 def _head(params: Model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(params.final_norm, x, cfg)
     table = params.embed if cfg.tie_embeddings else params.head
-    return (x @ table.T).float()
+    table = layers.constrain(table, "model", None)
+    return layers.constrain((x @ table.T).float(), layers.DP, None, "model")
 
 
+def _target_logit(lg: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """lg[..., targets]. On one device a gather. On a mesh whose 'model'
+    axis shards the vocab, each shard gathers the targets that fall in its
+    vocab range (zero elsewhere) and the shards sum over 'model': gathering
+    across the sharded dim would all-gather the full logits."""
+    if not layers.is_dtensor(lg):
+        return torch.gather(lg, -1, targets[..., None])[..., 0]
+    mesh = lg.device_mesh
+    vdim = lg.dim() - 1
+    if not any(isinstance(p, Shard) and p.dim == vdim
+               for p in lg.placements):
+        return torch.gather(lg, -1, targets[..., None])[..., 0]
+    lead = tuple(Replicate() if isinstance(p, Shard) and p.dim == vdim
+                 else p for p in lg.placements)
+    targets = layers.as_dtensor(targets, mesh, lead)
+    vids = layers.as_dtensor(
+        torch.arange(lg.shape[-1], device=lg.to_local().device), mesh,
+        tuple(Shard(0) if isinstance(p, Shard) and p.dim == vdim
+              else Replicate() for p in lg.placements))
+    out = tuple(Partial() if isinstance(p, Shard) and p.dim == vdim
+                else p for p in lg.placements)
+
+    def local(lg_l, tgt_l, vids_l):
+        rel = tgt_l - vids_l[0]
+        inside = (rel >= 0) & (rel < lg_l.shape[-1])
+        got = torch.gather(lg_l, -1,
+                           rel.clamp(0, lg_l.shape[-1] - 1)[..., None])[..., 0]
+        return torch.where(inside, got, torch.zeros_like(got))
+
+    return local_map(local, out_placements=(out,),
+                     in_placements=(lg.placements, lead,
+                                    tuple(vids.placements)),
+                     device_mesh=mesh)(lg, targets, vids)
+
+
+def _meshed(fn):
+    """Run a model entry point in ``layers.under_mesh()``."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with layers.under_mesh():
+            return fn(*args, **kwargs)
+    return run
+
+
+@_meshed
 def train_loss(params: Model, cfg: ModelConfig, batch: dict,
                router_bias: Optional[torch.Tensor] = None) -> TrainOut:
     """Next-token cross-entropy in fp32 over ``batch["tokens"]`` (B, S) (the
@@ -243,7 +298,7 @@ def train_loss(params: Model, cfg: ModelConfig, batch: dict,
         x = x[:, plen:]
     lg = _head(params, cfg, x)[:, :-1]                  # (B, S-1, V) fp32
     targets = tokens[:, 1:].long()
-    correct = torch.gather(lg, -1, targets[..., None])[..., 0]
+    correct = _target_logit(lg, targets)
     loss = (torch.logsumexp(lg, dim=-1) - correct).mean()
     if cfg.router_mode == "aux" and cfg.num_experts:
         loss = loss + cfg.aux_loss_coef * aux
@@ -327,6 +382,7 @@ def _inputs(params: Model, cfg: ModelConfig, batch: dict):
     return x, 0
 
 
+@_meshed
 def prefill(params: Model, cfg: ModelConfig, batch: dict, cache: dict,
             attn_backend: str = "kernel",
             router_bias: Optional[torch.Tensor] = None):
@@ -343,6 +399,7 @@ def prefill(params: Model, cfg: ModelConfig, batch: dict, cache: dict,
                                         device=x.device)}
 
 
+@_meshed
 def decode_step(params: Model, cfg: ModelConfig, batch: dict, cache: dict,
                 table: Optional[torch.Tensor] = None,
                 active: Optional[torch.Tensor] = None,

@@ -24,6 +24,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
 from ..core import router as irouter
@@ -144,6 +146,8 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig,
     independent groups (1 when the token count does not divide), each with
     its own capacity."""
     layers.check_backend(backend)
+    if layers.is_dtensor(x):
+        return _moe_ffn_mesh(params, x, cfg, bias, backend)
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s
@@ -167,6 +171,75 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig,
         aux_loss=irouter.aux_loss(idx, probs, e),
         drop_frac=1.0 - torch.stack(keeps).float().mean())
     return y.reshape(b, s, d), stats
+
+
+def _moe_ffn_mesh(params: MoE, x, cfg: ModelConfig, bias, backend: str):
+    """``moe_ffn`` on DTensors. Routing, dispatch and combine run per token
+    group on the group's DP shard (``local_map``: the argsort and the
+    scatter stay local, as in the JAX package with ``dispatch_groups`` =
+    the DP size); the expert buffer is resharded to E over 'model' for the
+    expert products and back to its DP shard before the combine — the
+    expert-parallel all-to-all, made explicit. The products are the torch
+    route's einsums: the grouped-matmul kernel takes plain tensors."""
+    if backend == "kernel":
+        raise ValueError("the grouped-matmul kernel takes plain tensors; a "
+                         "model on a mesh runs attn_backend='torch'")
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    t = b * s
+    g = cfg.dispatch_groups if t % cfg.dispatch_groups == 0 else 1
+    tl = t // g
+    mesh = x.device_mesh
+    tok = layers.constrain(layers.view(x, g, tl, d), layers.DP, None, None)
+    local = layers.placements(layers.guard_spec((g, tl, d), layers.DP, None,
+                                                None), mesh)
+    tok = layers.as_dtensor(tok, mesh, local)
+    logits = layers.as_dtensor(tok.float() @ params.w_router, mesh, local)
+    rep = (Replicate(),) * mesh.ndim
+    c = capacity(cfg, tl)
+
+    def route_dispatch(tok_l, logits_l, bias_l):
+        idx, gates, probs = irouter.route(logits_l, bias_l, k)
+        parts = [_dispatch(tok_l[gi], idx[gi], e, c)
+                 for gi in range(tok_l.shape[0])]
+        counts = torch.stack([irouter.expert_counts(idx[gi], e)
+                              for gi in range(tok_l.shape[0])])
+        expert_in, slot_loc, keep, _ = (torch.stack(z) for z in zip(*parts))
+        return expert_in, slot_loc, keep, gates, probs, counts
+
+    expert_in, slot_loc, keep, gates, probs, counts = local_map(
+        route_dispatch, out_placements=(local,) * 6,
+        in_placements=(local, local, rep), device_mesh=mesh)(
+        tok, logits, layers.as_dtensor(bias, mesh, rep))
+
+    # expert-parallel products: E over 'model', groups on their DP shards
+    expert_in = layers.constrain(expert_in, layers.DP, "model", None, None)
+    act = _act(cfg)
+    h = act(torch.einsum("gecd,edf->gecf", expert_in, params.w_gate)) \
+        * torch.einsum("gecd,edf->gecf", expert_in, params.w_up)
+    h = layers.constrain(h, layers.DP, "model", None, None)
+    out = torch.einsum("gecf,efd->gecd", h, params.w_down)
+    # the return all-to-all: each group's buffer back to its DP shard before
+    # the combine gather
+    out = layers.as_dtensor(
+        layers.constrain(out, layers.DP, None, None, None), mesh, local)
+
+    def combine(out_l, slot_l, gates_l, keep_l):
+        return torch.stack([_combine(out_l[gi], slot_l[gi], gates_l[gi],
+                                     keep_l[gi], tl)
+                            for gi in range(out_l.shape[0])])
+
+    y = local_map(combine, out_placements=(local,),
+                  in_placements=(local, local, local, local),
+                  device_mesh=mesh)(out, slot_loc, gates, keep)
+    y = layers.constrain(y, layers.DP, None, None)
+
+    load = counts.sum(0).to(torch.float32) / (t * k)
+    stats = MoEStats(
+        load_frac=load,
+        aux_loss=e * torch.sum(load.detach() * probs.mean(dim=(0, 1))),
+        drop_frac=1.0 - keep.float().mean())
+    return layers.view(y, b, s, d), stats
 
 
 def moe_ffn_reference(params: MoE, x: torch.Tensor, cfg: ModelConfig,

@@ -21,8 +21,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .layers import (RMSNorm, _normal, _param, dense_init, dtype_of,
-                     masked_copy_, rmsnorm)
+from .layers import (DP, RMSNorm, _normal, _param, constrain, dense_init,
+                     dtype_of, guard_spec, is_dtensor, local_apply,
+                     masked_copy_, reshard, rmsnorm, view)
 
 
 def dims(cfg: ModelConfig):
@@ -64,9 +65,9 @@ def _split(params: SSM, x: torch.Tensor, cfg: ModelConfig):
     d_inner, h, n, _ = dims(cfg)
     w = params.in_proj
     conv_dim = d_inner + 2 * n
-    z = x @ w[:, :d_inner]
-    xbc = x @ w[:, d_inner:d_inner + conv_dim]
-    dt_raw = x @ w[:, -h:]                      # (B,S,H)
+    z = constrain(x @ w[:, :d_inner], DP, None, "model")
+    xbc = constrain(x @ w[:, d_inner:d_inner + conv_dim], DP, None, "model")
+    dt_raw = x @ w[:, -h:]                      # (B,S,H): tiny, replicated
     dt = F.softplus(dt_raw.float() + params.dt_bias)
     return z, xbc, dt
 
@@ -148,18 +149,36 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y
 
 
-def _mix(params: SSM, cfg: ModelConfig, x, z, xbc_c, dt, init_state=None):
+def _mix(params: SSM, cfg: ModelConfig, x, z, xbc_c, dt, init_state=None,
+         shard_p: bool = False):
     """The SSD over the conv'd projections, the skip, the gate and the
-    output projection; returns (y (B,S,D), final state)."""
+    output projection; returns (y (B,S,D), final state). ``shard_p`` (the
+    training block) shards the state expansion on the head dim p over
+    'model', so no SSD einsum contracts over a sharded dim."""
     d_inner, h, n, p = dims(cfg)
-    xs = xbc_c[..., :d_inner].reshape(*x.shape[:2], h, p)
+    xs = view(xbc_c[..., :d_inner], *x.shape[:2], h, p)
+    if shard_p:
+        xs = constrain(xs, DP, None, None, "model")
     b = xbc_c[..., d_inner:d_inner + n]
     c = xbc_c[..., d_inner + n:]
-    y, state = ssd_chunked(xs.float(), dt, params.A_log, b.float(), c.float(),
-                           cfg.ssm_chunk, return_state=True,
-                           init_state=init_state)
-    y = y + params.D[:, None] * xs.float()
-    y = y.reshape(*x.shape[:2], d_inner).to(x.dtype)
+    args = (xs.float(), dt, params.A_log, b.float(), c.float(), init_state)
+
+    def ssd(xs, dt, a_log, b, c, init_state):
+        return ssd_chunked(xs, dt, a_log, b, c, cfg.ssm_chunk,
+                           return_state=True, init_state=init_state)
+
+    if is_dtensor(xs):
+        # p is a pure batch dim of every SSD einsum: each shard runs its own
+        bsz, s = x.shape[:2]
+        xsp = guard_spec((bsz, s, h, p), DP, None, None, "model")
+        st = guard_spec((bsz, h, n, p), DP, None, None, "model")
+        rows = guard_spec((bsz, s, h), DP, None, None)
+        y, state = local_apply(ssd, args, (xsp, rows, (None,), rows, rows, st),
+                               (xsp, st))
+    else:
+        y, state = ssd(*args)
+    y = _merge_ready(y + params.D[:, None] * xs.float())
+    y = view(y, *x.shape[:2], d_inner).to(x.dtype)
     y = rmsnorm(params.norm, y * F.silu(z), cfg)
     return y @ params.out_proj, state
 
@@ -167,7 +186,8 @@ def _mix(params: SSM, cfg: ModelConfig, x, z, xbc_c, dt, init_state=None):
 def ssm_block(params: SSM, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence mamba-2 mixer. x: (B,S,D) -> (B,S,D)."""
     z, xbc, dt = _split(params, x, cfg)
-    return _mix(params, cfg, x, z, _conv_train(params, xbc), dt)[0]
+    return _mix(params, cfg, x, z, _conv_train(params, xbc), dt,
+                shard_p=True)[0]
 
 
 def _conv_tail(xbc: torch.Tensor, k: int) -> torch.Tensor:
@@ -230,6 +250,28 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device) -> dict:
                                  device=device)}
 
 
+def _merge_ready(y: torch.Tensor) -> torch.Tensor:
+    """y (..., H, P) ready to merge its heads into d_inner: on a mesh, p
+    gives up 'model' and the heads take it where they divide it (a DTensor
+    merges dims only when the first of them is the one sharded)."""
+    if not is_dtensor(y):
+        return y
+    spec = guard_spec(y.shape, *((DP,) + (None,) * (y.dim() - 3)
+                                 + ("model", None)))
+    return reshard(y, spec)
+
+
+def _ssd_step(state, xs, dt1, a_log, b, c, d):
+    """One token of the recurrence: state (B,H,N,P), xs (B,H,P), dt1 (B,H),
+    b and c (B,N). Returns (y (B,H,P) with the skip, the new state)."""
+    decay = torch.exp(dt1 * (-torch.exp(a_log)))       # (B,H)
+    xdt = xs * dt1[..., None]                           # (B,H,P)
+    state = state * decay[..., None, None] \
+        + torch.einsum("bn,bhp->bhnp", b, xdt)
+    y = torch.einsum("bn,bhnp->bhp", c, state)
+    return y + d[:, None] * xs, state
+
+
 def ssm_block_decode(params: SSM, x: torch.Tensor, cfg: ModelConfig,
                      cache: dict, active: Optional[torch.Tensor] = None):
     """One-token step. x: (B,1,D) -> (B,1,D); the cache is advanced in place
@@ -240,18 +282,23 @@ def ssm_block_decode(params: SSM, x: torch.Tensor, cfg: ModelConfig,
     conv = torch.einsum("bkc,kc->bc", window, params.conv_w.to(window.dtype))
     xbc1 = F.silu(conv + params.conv_b).to(x.dtype)
 
-    xs = xbc1[..., :d_inner].reshape(-1, h, p).float()
+    xs = view(xbc1[..., :d_inner], -1, h, p).float()
     b = xbc1[..., d_inner:d_inner + n].float()
     c = xbc1[..., d_inner + n:].float()
     dt1 = dt[:, 0]                                     # (B,H)
 
-    decay = torch.exp(dt1 * (-torch.exp(params.A_log)))  # (B,H)
-    xdt = xs * dt1[..., None]                           # (B,H,P)
-    state = cache["state"] * decay[..., None, None] \
-        + torch.einsum("bn,bhp->bhnp", b, xdt)
-    y = torch.einsum("bn,bhnp->bhp", c, state)
-    y = y + params.D[:, None] * xs
-    y = y.reshape(-1, 1, d_inner).to(x.dtype)
+    args = (cache["state"], xs, dt1, params.A_log, b, c, params.D)
+    if is_dtensor(xs):
+        bsz = xs.shape[0]
+        st = guard_spec((bsz, h, n, p), DP, None, None, "model")
+        row = guard_spec((bsz, h, p), DP, None, "model")
+        rep = guard_spec((bsz, n), DP, None)
+        y, state = local_apply(_ssd_step, args,
+                               (st, row, rep, (None,), rep, rep, (None,)),
+                               (row, st))
+    else:
+        y, state = _ssd_step(*args)
+    y = view(_merge_ready(y), -1, 1, d_inner).to(x.dtype)
     y = rmsnorm(params.norm, y * F.silu(z), cfg)
     masked_copy_(cache["conv"], window[:, 1:], active)
     masked_copy_(cache["state"], state, active)

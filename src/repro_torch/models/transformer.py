@@ -130,6 +130,7 @@ def apply_block(blk: Block, x, cfg: ModelConfig, bias=None,
     """Full-sequence (training) block on the torch route: no kernel lies on
     it, as none lies on the JAX package's training path. Returns (x, the
     MoE's ``MoEStats`` or None)."""
+    x = layers.constrain(x, layers.DP, None, None)
     h = rmsnorm(blk.norm1, x, cfg)
     if blk.kind == "ssm":
         return x + ssm.ssm_block(blk.mixer, h, cfg), None

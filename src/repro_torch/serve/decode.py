@@ -1,8 +1,10 @@
 """One-shot batched serving: prefill + greedy/sampled decode over a fixed batch
 (PyTorch port of ``repro/serve/decode.py``).
 
-``generate`` is the port's own one-shot oracle: the engine must emit exactly
-its tokens for the same request. ``sampling`` (a ``SamplingSpec``) switches
+``serve_step`` (one token for the whole batch against the KV cache) is the
+function the decode-shape dry-runs run; ``generate`` is the port's own
+one-shot oracle: the engine must emit exactly its tokens for the same
+request. ``sampling`` (a ``SamplingSpec``) switches
 the loop from argmax to ``model.sample_tokens`` with the engine's key
 discipline (lane key folded with the index of the token being emitted).
 """
@@ -14,6 +16,16 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models import model
+
+
+def serve_step(params, cfg: ModelConfig, batch: dict, cache: dict,
+               router_bias: Optional[torch.Tensor] = None):
+    """One new token per sequence with a KV cache — the decode dry-run
+    target: ``model.decode_step`` on the torch route (the JAX package's
+    default ``"xla"``), which runs no kernel. Returns (logits (B, 1, V),
+    cache); the cache is updated in place."""
+    return model.decode_step(params, cfg, batch, cache, attn_backend="torch",
+                             router_bias=router_bias)
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,7 @@ import torch
 from ..configs.base import ModelConfig, TrainConfig
 from ..core import router as irouter
 from ..dist.checkpoint import flatten, unflatten
+from ..models import layers
 from ..models import model as model_lib
 from . import optimizer as opt
 
@@ -80,8 +81,9 @@ def loss_and_grads(model: model_lib.Model, cfg: ModelConfig, batch: dict,
     leaves, _ = flatten(model_lib.param_layout(model, cfg))
     flat = [p for leaf in leaves for p in leaf.params]
     out = model_lib.train_loss(model, cfg, batch, router_bias=router_bias)
-    g = iter(torch.autograd.grad(out.loss, flat, allow_unused=True,
-                                 materialize_grads=True))
+    with layers.under_mesh():       # the backward meets the same constants
+        g = iter(torch.autograd.grad(out.loss, flat, allow_unused=True,
+                                     materialize_grads=True))
     grads = []
     for leaf in leaves:
         gs = [next(g) for _ in leaf.params]

@@ -683,3 +683,43 @@ def test_trainer_on_card_resumes_bitwise_without_kernels(card, tmp_path):
     lb, _ = ckpt.flatten(ts.state_tree(state_b, cfg))
     assert all(torch.equal(a, b) for a, b in zip(la, lb, strict=True))
     assert [w.launches for w in wrappers] == before
+
+
+def test_host_mesh_and_placement_on_card(card):
+    """The host mesh on the card is a one-rank NCCL ('data', 'model') mesh;
+    the smoke params placed on it by the sharding rules are CUDA DTensors
+    whose local shards equal the plain leaves, and ``serve_step`` on them
+    gives the plain model's logits bit for bit."""
+    import copy
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers
+    from repro_torch.serve import decode
+    mesh = make_host_mesh()
+    assert mesh.device_type == "cuda" and mesh.mesh_dim_names == \
+        ("data", "model")
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    cfg = configs.get_config("smollm-360m").smoke()
+    plain = model.init_params(cfg, torch.Generator(device="cuda")
+                              .manual_seed(0))
+    placed = copy.deepcopy(plain)
+    layers.set_mesh_axes(mesh)
+    try:
+        shd.place(placed, shd.param_shardings(placed, cfg, mesh), mesh, cfg)
+        for (name, p), q in zip(placed.named_parameters(),
+                                plain.parameters()):
+            assert isinstance(p, DTensor) and p.device.type == "cuda", name
+            assert torch.equal(p.to_local(), q), name
+        tok = torch.randint(0, cfg.vocab_size, (2, 1), device="cuda")
+        want, _ = decode.serve_step(plain, cfg, {"token": tok},
+                                    model.init_cache(cfg, 2, 8, "cuda"))
+        cache = model.init_cache(cfg, 2, 8, "cuda")
+        cache = shd.place(cache, shd.cache_shardings(cache, cfg, mesh), mesh)
+        batch = shd.place({"token": tok}, shd.batch_shardings(
+            {"token": tok}, mesh), mesh)
+        got, _ = decode.serve_step(placed, cfg, batch, cache)
+        assert torch.equal(got.full_tensor(), want)
+    finally:
+        layers.set_mesh_axes(None)

@@ -7,7 +7,8 @@
   and prints no ``"ok": true`` line, in the repository and alone in an
   empty directory.
 * Entry points run on ``cuda`` unless the caller asks for the CPU, and the
-  serving CLI serves a trace with ``--device cpu``.
+  serving CLI serves a trace with ``--device cpu``; the host mesh defaults
+  to the card and refuses to start without one.
 """
 import ast
 import json
@@ -91,7 +92,33 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     assert '"ok": true' not in out.stdout
 
 
+SLICE8 = ("dist/sharding.py", "launch/mesh.py", "launch/roofline.py",
+          "launch/dryrun.py")
+
+
+def test_distribution_modules_are_ported():
+    """The distribution and launch slice exists in the port (so the import
+    and AST scans above cover it), ``serve_step`` included."""
+    for rel in SLICE8:
+        assert (PORT / rel).is_file(), rel
+    from repro_torch.serve.decode import serve_step
+    assert callable(serve_step)
+
+
 class TestDevices:
+    def test_host_mesh_defaults_to_cuda_and_needs_a_card(self):
+        import inspect
+        import torch.distributed as dist
+        from repro_torch.launch import mesh
+        assert inspect.signature(mesh.make_host_mesh).parameters["device"] \
+            .default is None                        # None: the card
+        if torch.cuda.is_available():
+            pytest.skip("a card is visible")
+        was = dist.is_initialized()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mesh.make_host_mesh()
+        assert dist.is_initialized() == was          # no group was started
+
     def test_entry_points_default_to_cuda(self):
         import inspect
         from repro_torch.launch.serve import build_parser

@@ -163,6 +163,27 @@ class TestLogits:
             _close(tl, jl)
         _pools_close(tc, jc)
 
+    def test_serve_step_matches_jax(self, pair):
+        """``serve.decode.serve_step`` (the decode dry-run target) against
+        the JAX package's: the torch route on the dense cache, three tokens
+        after a prefill, logits within 1e-5 and the caches alike."""
+        from repro.serve import decode as jdecode
+        from repro_torch.serve import decode
+        jcfg, cfg, jp, tp = pair
+        toks = _tokens(5, (2, 9), cfg.vocab_size)
+        _, jc = jmodel.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)},
+                               jmodel.init_cache(jcfg, 2, 16))
+        _, tc = model.prefill(tp, cfg, {"tokens": torch.as_tensor(toks)},
+                              model.init_cache(cfg, 2, 16, "cpu"))
+        for step in range(3):
+            nxt = _tokens(200 + step, (2, 1), cfg.vocab_size)
+            jl, jc = jdecode.serve_step(jp, jcfg, {"token": jnp.asarray(nxt)},
+                                        jc)
+            tl, tc = decode.serve_step(tp, cfg,
+                                       {"token": torch.as_tensor(nxt)}, tc)
+            _close(tl, jl)
+        _pools_close(tc, jc)
+
     @pytest.mark.parametrize("backend", BACKENDS)
     def test_decode_step_paged(self, pair, backend):
         """Two slots at different depths over scattered pages, one inactive
