@@ -13,15 +13,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    paged verify step at the same width for Sq in {1, 2, 5, 7} with ragged
    first positions (page boundaries, rows past the table's capacity), plus
    MHA and MQA, and at Sq = 1 bitwise the decode kernel at lengths = pos + 1;
-   both also at the head dims beyond the tensor-core body's: D = 256 at
-   paligemma-3b's 8 / 1 heads and gemma-7b's 16 / 16, D = 112 at
-   kimi-k2's 64 / 8 (``PAGED_CASES``, ``VERIFY_CASES``); decode also at
-   phase 8's shapes, musicgen-medium's 24 / 24 heads at D = 64 over a
-   26-page table and paligemma-3b's over a 25-page one;
-   flash attention at H=15, Hkv=5, D=64 for S in {1, 17, 64, 65, 128, 383,
-   1000}, at B=2 for D in {16, 32, 128}, S in {64, 65, 383}, at D = 256
-   (8 / 1 heads) and D = 112 (64 / 8) for S in {64, 65, 383, 1000}, and at
-   musicgen-medium's 24 / 24 heads for S in {100, 383}, causal
+   both also at D = 256 (paligemma-3b's 8 / 1 heads and gemma-7b's 16 /
+   16) and at D = 112 (kimi-k2's 64 / 8) (``PAGED_CASES``,
+   ``VERIFY_CASES``); decode also at phase 8's shapes, musicgen-medium's 24
+   / 24 heads at D = 64 over a 26-page table and paligemma-3b's over a
+   25-page one; flash attention at H=15, Hkv=5, D=64 for S in {1, 17, 64,
+   65, 128, 383, 1000}, at B=2 for D in {16, 32, 128}, S in {64, 65, 383},
+   at D = 256 (8 / 1 heads) and D = 112 (64 / 8) for S in {64, 65, 383,
+   1000}, at musicgen-medium's 24 / 24 heads for S in {100, 383} and at
+   gemma-7b's 16 / 16 heads (D = 256) for S in {65, 383}, causal
    and not; the MoE grouped matmul at granite-moe-3b-a800m's widths (E, C, D, F)
    = (40, 64, 1536, 512), (40, 64, 512, 1536), (40, 320, 1536, 512), (40,
    252, 1536, 512) and at (3, 37, 96, 80), with seeded group sizes that
@@ -33,16 +33,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    with its dead rows exactly 0.0. Every kernel but the grid step has two
    bodies (the tensor cores, "mma"; CUDA cores, "cuda_core"), picked from
    dtype, shapes and alignment: bf16 calls take "mma" (the grouped matmul
-   only where D and F are multiples of 8, the attention kernels only at
-   head dims 16-128, all only with 16-byte-aligned pointers), fp32 calls
-   and bf16 at D = 112 / 256 "cuda_core"; every check must count its launch
-   under the body ``kernel_path`` names. Then each kernel, its plain
+   only where D and F are multiples of 8, the attention kernels at head
+   dims 16, 32, 64, 128 and 256, all only with 16-byte-aligned pointers),
+   fp32 calls and bf16 at D = 112 "cuda_core"; every check must count its
+   launch under the body ``kernel_path`` names. Then each kernel, its plain
    version and a library call (SDPA for flash, ``torch.bmm`` for the
    grouped matmul) are timed with CUDA events at main-path shapes, beside
    the bound from the bytes and flops those shapes need (decode: B=8 at lengths 102-1100; verify: B=8, Sq=5 at the spec
-   trace's positions; flash at S = 1000 and 383; decode at paligemma-3b's
-   decode shape (B=8, 8 / 1 heads, D=256, lengths 304-372) and flash at
-   D=256, S=1000 (8 / 1 heads) beside SDPA; the grouped matmul at the
+   trace's positions; flash at S = 1000 and 383; at D = 256: decode at
+   paligemma-3b's decode shape (B=8, 8 / 1 heads, lengths 304-372) and at
+   gemma-7b's (B=8, 16 / 16 heads, lengths 102-1016), verify at
+   paligemma's (Sq = 5 from those lengths), flash at S=1000 with 8 / 1 and
+   16 / 16 heads beside SDPA; the grouped matmul at the
    decode tick's gate / up shape with one tick's group sizes and at a
    1000-token prefill's (C = 252)). No single PyTorch call gathers pages,
    so paged decode and verify have no library time; beside them SDPA over
@@ -166,15 +168,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    flip by the logit gap (``SSM_CHUNK_TOL``; each flip's seed, tokens and gaps
    printed under ``sampled_flips``); (e) launch counts: paged decode
    num_layers x decode ticks and flash num_layers x prefills on musicgen,
-   paged decode 18 x decode ticks at D = 256 and no flash on paligemma (its
-   prefix-LM prefill takes the torch path), no kernel on mamba and
-   recurrentgemma, every call on the body ``kernel_path`` predicts; (f) a
+   paged decode 18 x decode ticks at D = 256 (on "mma") and no flash on
+   paligemma (its prefix-LM prefill takes the torch path), no kernel on
+   mamba and recurrentgemma, every call on the body ``kernel_path``
+   predicts; (f) a
    ``torch.profiler`` window of ten decode ticks per model (printed, not
    checked).
 
 9. The serving fleet (``serve.router``, ``serve.faults``,
-   ``serve.durability``): full-width smollm-360m (bf16, ``--seed`` weights;
-   fp32 where said) in replicas of the JAX benchmark's config (2 slots,
+   ``serve.durability``): full-width smollm-360m cut to 16 layers
+   (``FLEET_LAYERS``; bf16, ``--seed`` weights; fp32 where said) in
+   replicas of the JAX benchmark's config (2 slots,
    page 16, chunked prefill 16, immune admission; max_cache 64 and 4 pinned
    pages for routing and failover, 96 and 8 for durability), every replica
    on the one card, sharing the weights. (a) Routing: 24 requests of
@@ -236,10 +240,27 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    with ``--multi-pod``, in subprocesses: every record ``ok`` with 256 /
    512 chips, the key terms printed.
 
-Phases 3-11 each set every launch count to 0 just before they drive their
-path and read the counts just after. Phases 3 and 9 and every phase-8 model
-but recurrentgemma-9b run at full depth; phases 4-6 and recurrentgemma-9b
-at the depths above, so the whole run stays well inside 1,200 s.
+12. gemma-7b at its full published config (28 layers, d_model 3072, 16 / 16
+   heads at head_dim 256, d_ff 24,576 GeGLU, vocab 256,000, tied and scaled
+   embeddings, bf16, 8.54 B parameters; random weights from ``--seed``)
+   serves 8 requests of ``synthetic_trace`` (prompts 100 / 383 and the
+   heavy class's 1,000, 32 new tokens, two seeded lanes at temperature 0.8)
+   on phase 3's engine config (8 slots, page 16, max_cache 1536, one-shot
+   prefill), on the kernel and the torch backends. Every request finishes
+   with its budget; the kernel run launches flash 28 x prefills and paged
+   decode 28 x decode ticks, every call on "mma" (the D = 256 tensor-core
+   bodies), the torch run nothing; logits agree by ``bf16_rule`` (phase 3's
+   rule, else the kernel run within ``BF16_FP32_CAP`` of the same weights
+   served in fp32 on the torch backend, which then runs, and no farther
+   from them than ``GEMMA_BF16_SLACK`` x the torch run), with the ratios
+   printed. ``torch.profiler`` windows of ten decode ticks (all eight slots
+   busy) and of one prefill of the 1,000-token prompt.
+
+Phases 3-12 each set every launch count to 0 just before they drive their
+path and read the counts just after. Phases 3 and 12 and every phase-8
+model but recurrentgemma-9b run at full depth; phases 4-6, 9 and
+recurrentgemma-9b at the depths above, so the whole run stays inside
+1,200 s.
 
 The second-to-last lines are one JSON object ``{"kernels": [...]}`` and the
 ``nvidia-smi`` name/power line; the last line is
@@ -300,6 +321,16 @@ MOE_BF16_SLACK = 1.25
 # (musicgen-medium's 48 layers: kernel run 1.158x, torch run 1.277x on an
 # NVIDIA H100 80GB HBM3 at 700 W)
 BF16_FP32_CAP = 1.25
+# Phase 12's slack on "no farther from fp32 than the torch run". On
+# full-width gemma-7b (28 layers, d_model 3072) every bf16 arrangement of
+# the same weights lands 1.10-1.17x BF16_TOL from fp32 arithmetic, exact
+# fp32 attention included, and any two of them 1.29-1.37x apart
+# (``tools/dense_rounding.py`` on an NVIDIA H100 80GB HBM3 at 700 W: torch
+# backend with fp32 attention 1.103, torch backend 1.142, kernel backend
+# 1.166), so which run lands closer is the rest of the bf16 arithmetic, not
+# the attention: the three spread by 1.057x, and this allows about twice
+# that. BF16_FP32_CAP still bounds the kernel run.
+GEMMA_BF16_SLACK = 1.10
 
 
 def fail(msg: str):
@@ -542,13 +573,15 @@ def check_verify(torch, gen, verify, verify_ref, paged_attention,
 # (B, H, Hkv, D, S): smollm-360m's width at the engine's prompt lengths
 # (both tile edges: 64, 65), then every other head dim at two sequences,
 # then paligemma-3b's D = 256 (8 / 1 heads) and kimi-k2's D = 112 (64 / 8),
-# then musicgen-medium's prefills in phase 8 (24 / 24 heads, G = 1)
+# then musicgen-medium's prefills in phase 8 (24 / 24 heads, G = 1) and
+# gemma-7b's in phase 12 (16 / 16 heads at D = 256; S = 1000 is timed)
 FLASH_CASES = ([(1, 15, 5, 64, s) for s in (1, 17, 64, 65, 128, 383, 1000)]
                + [(2, 15, 5, d, s) for d in (16, 32, 128)
                   for s in (64, 65, 383)]
                + [(1, h, hk, d, s) for h, hk, d in ((8, 1, 256), (64, 8, 112))
                   for s in (64, 65, 383, 1000)]
-               + [(1, 24, 24, 64, s) for s in (100, 383)])
+               + [(1, 24, 24, 64, s) for s in (100, 383)]
+               + [(1, 16, 16, 256, s) for s in (65, 383)])
 
 
 def check_flash(torch, gen, flash_attention, attention_ref,
@@ -619,6 +652,14 @@ def dense_sdpa(torch, q, k_pages, v_pages, table, bound) -> dict:
 # 400-token block table, 256 patches + a 32 / 100-token prompt + 16 tokens
 PALIGEMMA_DECODE = dict(h=8, hk=1, d=256, maxp=25,
                         lengths=[304, 372, 304, 372, 304, 372, 304, 372])
+# verify at the same heads and table, Sq = 5 from those lengths (no main path
+# verifies at D = 256: speculation is refused for the VLM family)
+PALIGEMMA_VERIFY = dict(h=8, hk=1, d=256, maxp=25,
+                        positions=PALIGEMMA_DECODE["lengths"])
+# gemma-7b's decode shape in phase 12: 8 slots, MHA 16 / 16 at D = 256 over
+# its 1536-token block table, lengths of the trace's in-flight mix
+GEMMA_DECODE = dict(h=16, hk=16, d=256, maxp=96,
+                    lengths=[116, 399, 1016, 130, 391, 102, 403, 1016])
 
 
 def time_paged(torch, gen, paged_attention, paged_attention_ref, h=15, hk=5,
@@ -671,11 +712,13 @@ def verify_positions(traces, cfg, seed: int) -> list:
     return [len(r.tokens) + 16 for r in spec_trace(traces, cfg, seed)[:8]]
 
 
-def time_verify(torch, gen, verify, verify_ref, positions: list) -> dict:
-    """Spec-tick verify shape: 8 slots, Sq = 5 (k = 4 drafts) at smollm width
-    over a 32-page table (max_cache 512), first positions from the spec
-    trace. Eight pool copies rotate so the pages come from HBM."""
-    b, sq, h, hk, d, page, maxp = 8, 5, 15, 5, 64, 16, 32
+def time_verify(torch, gen, verify, verify_ref, positions: list, h=15, hk=5,
+                d=64, maxp=32) -> dict:
+    """Spec-tick verify shape: 8 slots, Sq = 5 (k = 4 drafts), by default
+    at smollm width over a 32-page table (max_cache 512), first positions
+    from the spec trace. Eight pool copies rotate so the pages come from
+    HBM."""
+    b, sq, page = len(positions), 5, 16
     q, kp, vp, table, pos = verify_inputs(torch, gen, b, sq, h, hk, d, page,
                                           maxp, torch.bfloat16, positions)
     pools = [(kp.clone(), vp.clone()) for _ in range(8)]
@@ -1078,14 +1121,16 @@ def smoke_oneshot_parity(torch, configs, model_lib, eng_mod, api, traces,
 # ---------------------------------------------------------------------------
 SPEC_K, SPEC_DEPTH = 4, 8
 
-# Depth cuts that keep the whole run of nine phases well inside its 1,200 s
-# limit on a slower host (at full depth it took 910 s of command time on an
-# NVIDIA H100 80GB HBM3 at 700.00 W, and a host 1.6x slower was seen):
-# these earlier paths run fewer layers of their published configs, every
-# width unchanged. Phase 3 (the main path) and phase 9 run at full depth.
+# Depth cuts that keep the whole run inside its 1,200 s limit on a slower
+# host (nine phases at full depth took 910 s of command time on an NVIDIA
+# H100 80GB HBM3 at 700.00 W, and a host 1.6x slower was seen; with phase
+# 12, 966.7 s on a host where phase 7 ran 1.4x slower than before): these
+# earlier paths run fewer layers of their published configs, every width
+# unchanged. Phase 3 (the main path) and phase 12 run at full depth.
 SPEC_LAYERS = 16                          # phases 4-5, smollm-360m: 32
 MOE_LAYERS = 16                           # phase 6, granite-moe-3b-a800m: 32
 FAMILY_LAYERS = {"recurrentgemma-9b": 20}  # phase 8: 38 (6 groups + tail)
+FLEET_LAYERS = 16                         # phase 9, smollm-360m: 32
 
 
 def spec_trace(traces, cfg, seed: int):
@@ -1562,10 +1607,12 @@ def family_launches(cfg, stats) -> dict:
 
 
 def family_serve(torch, eng_mod, params, cfg, trace, backend: str,
-                 counters: dict):
-    """Serve ``trace`` on the card, every launch count set to 0 just before;
-    returns (engine, stats, wall s, launches, peak GB)."""
-    eng = eng_mod.Engine(params, cfg, family_config(eng_mod, cfg, backend),
+                 counters: dict, ecfg=None):
+    """Serve ``trace`` on the card (engine config ``ecfg``, by default
+    ``family_config``'s), every launch count set to 0 just before; returns
+    (engine, stats, wall s, launches, peak GB)."""
+    eng = eng_mod.Engine(params, cfg,
+                         ecfg or family_config(eng_mod, cfg, backend),
                          device="cuda")
     torch.cuda.reset_peak_memory_stats()
     stats, wall, n = run_counted(torch, counters,
@@ -1677,7 +1724,7 @@ def family_phase(torch, configs, eng_mod, traces, model_lib, api, arch: str,
         rep["kernel_vs_torch_fp32"] = {k: agree32[k] for k in (
             "max_logits_diff", "max_diff_over_tol", "diverged")}
         rep["kernel_vs_torch_bf16"] = bf16_rule(torch, model_lib, api, arch,
-                                                bf16, fp32["torch"])
+                                                bf16, lambda: fp32["torch"])
     del params, bf16, fp32, ref
     torch.cuda.empty_cache()
     rep["phase_s"] = time.perf_counter() - t0
@@ -1704,36 +1751,40 @@ def flip_details(runs: list, refs: list, diverged: list) -> list:
     return out
 
 
-def bf16_rule(torch, model_lib, api, arch: str, bf16: dict,
-              exact: list) -> dict:
+def bf16_rule(torch, model_lib, api, arch: str, bf16: dict, exact,
+              slack: float = 1.0) -> dict:
     """Kernel against torch backend in bf16 by phase 3's rule at
     ``BF16_TOL``. The torch backend rounds the scores to bf16 before the
     softmax (the JAX package's ``_sdpa``), the kernels keep them in fp32, and
     the gap grows with depth (~1.2x the 5e-2 kernel tolerance at smollm's 32
     layers, phase 3). Where the rule fails, the kernel run must be the closer
-    of the two to fp32 arithmetic on the same weights (``exact``, the torch
-    backend in fp32): within ``BF16_TOL`` of it, or no farther from it than
-    the torch run and within ``BF16_FP32_CAP`` x ``BF16_TOL`` of it — the
-    form of phase 6's bf16 check, without its routing slack. Phase 2 holds
-    the kernels themselves at these models' shapes (``PAGED_CASES``,
-    ``FLASH_CASES``)."""
+    of the two to fp32 arithmetic on the same weights (``exact()``, the
+    torch backend's requests in fp32, called only then): within ``BF16_TOL``
+    of it, or no farther from it than the torch run and within
+    ``BF16_FP32_CAP`` x ``BF16_TOL`` of it — the form of phase 6's bf16
+    check, without its routing slack (phase 12 passes ``slack`` =
+    ``GEMMA_BF16_SLACK``: the kernel run no farther than ``slack`` x the
+    torch run's distance). Phase 2 holds the kernels themselves at these
+    models' shapes (``PAGED_CASES``, ``FLASH_CASES``)."""
     agree = agreement(torch, model_lib, api, bf16["kernel"], bf16["torch"],
                       *BF16_TOL)
     out = {k: agree[k] for k in ("max_logits_diff", "max_diff_over_tol",
                                  "diverged", "violations")}
     if agree["violations"]:
-        ratio = {name: agreement(torch, model_lib, api, bf16[name], exact,
+        ref = exact()
+        ratio = {name: agreement(torch, model_lib, api, bf16[name], ref,
                                  *BF16_TOL)["max_diff_over_tol"]
                  for name in ("kernel", "torch")}
-        check(ratio["kernel"] <= max(1.0, ratio["torch"]),
+        check(ratio["kernel"] <= max(1.0, slack * ratio["torch"]),
               f"{arch} bf16 kernel and torch runs disagree "
               f"({agree['first_violations']}) and the kernel run is farther "
-              f"from fp32 arithmetic than the torch run: {ratio}")
+              f"from fp32 arithmetic than {slack} x the torch run: {ratio}")
         check(ratio["kernel"] <= BF16_FP32_CAP,
               f"{arch} bf16 kernel and torch runs disagree "
               f"({agree['first_violations']}) and the kernel run is past "
               f"{BF16_FP32_CAP}x BF16_TOL from fp32 arithmetic: {ratio}")
         out["vs_fp32_over_tol"] = ratio
+        out["slack"] = slack
     return out
 
 
@@ -2146,7 +2197,8 @@ def profile_fleet(torch, router_mod, eng_mod, params, cfg, traces, seed: int,
 def fleet_phase(torch, configs, eng_mod, traces, model_lib, router_mod,
                 faults, durability, seed: int, counters: dict,
                 kernel_paths: dict) -> tuple:
-    """Phase 9: full-width smollm-360m replicas behind the placement router.
+    """Phase 9: full-width smollm-360m replicas at ``FLEET_LAYERS`` behind
+    the placement router.
     (a) routing: the fleet trace under rr, jsq and immune at 2 replicas and
     immune at 1; every rid terminates, per-rid tokens equal across the four
     runs, the immune run takes affinity hits. (b) failover: a crash of one of
@@ -2163,11 +2215,13 @@ def fleet_phase(torch, configs, eng_mod, traces, model_lib, router_mod,
     paged launches, flash launches) of 9a's immune 2-replica run."""
     import tempfile
     t_phase = time.perf_counter()
-    cfg = configs.get_config("smollm-360m")
+    cfg = dataclasses.replace(configs.get_config("smollm-360m"),
+                              num_layers=FLEET_LAYERS)
     bodies = main_bodies(torch, kernel_paths, cfg)
     params = model_lib.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
-    rep: dict = {"model": cfg.name, "dtype": cfg.dtype}
+    rep: dict = {"model": cfg.name, "layers": cfg.num_layers,
+                 "dtype": cfg.dtype}
 
     # -- 9a: routing ----------------------------------------------------------
     ecfg = fleet_config(eng_mod, 3, 64, 4, 64.0)
@@ -2840,6 +2894,128 @@ def mesh_phase(torch, configs, seed: int, counters: dict) -> dict:
     return rep
 
 
+# ---------------------------------------------------------------------------
+# phase 12: gemma-7b at its full published config
+# ---------------------------------------------------------------------------
+GEMMA_ARCH = "gemma-7b"
+
+
+def gemma_trace(traces, cfg, seed: int):
+    """Eight requests of ``synthetic_trace``: prompts 100 / 383 and the
+    heavy class's 1,000 (drawn at ``heavy_frac`` 0.15: two at seed 0), 32
+    new tokens each, two seeded lanes (``FAMILY_SAMPLED``) at temperature
+    0.8."""
+    trace = traces.synthetic_trace(cfg, num_requests=8, seed=seed,
+                                   prompt_lens=(100, 383), heavy_prompt=1000)
+    for req in trace:
+        kw = dict(max_new_tokens=32)
+        if req.rid in FAMILY_SAMPLED:
+            kw["temperature"] = 0.8
+        req.params = dataclasses.replace(req.params, **kw)
+    return trace
+
+
+def profile_prefill(torch, model_lib, params, cfg, req) -> dict:
+    """One one-shot prefill of ``req`` on the kernel backend under
+    ``torch.profiler`` (another in the warm-up step, each into a fresh dense
+    cache): wall and device ms, the device's idle share, flash's device ms
+    and calls, the top device rows."""
+    prompts = req.prompts("cuda")
+    caches = [model_lib.init_cache(cfg, 1, len(req.tokens), "cuda")
+              for _ in range(2)]
+
+    def once(cache):
+        with torch.no_grad():
+            model_lib.prefill(params, cfg, prompts, cache,
+                              attn_backend="kernel")
+
+    wall_ms, rows = device_rows(torch, lambda: once(caches[0]),
+                                lambda: once(caches[1]))
+    busy = sum(r[0] for r in rows)
+    flash = [r for r in rows if "flash" in r[2]]
+    return {"prompt": len(req.tokens), "wall_ms": wall_ms,
+            "device_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms if busy else None,
+            "flash_ms": sum(r[0] for r in flash),
+            "flash_calls": sum(r[1] for r in flash),
+            "top": [{"kernel": k[:80], "ms": ms, "calls": n}
+                    for ms, n, k in rows[:8]]}
+
+
+def gemma_phase(torch, configs, eng_mod, traces, model_lib, api, seed: int,
+                counters: dict, kernel_paths: dict) -> dict:
+    """Phase 12: full-width gemma-7b (head dim 256), bf16, ``--seed``
+    weights, serves ``gemma_trace`` through ``Engine.run`` on phase 3's
+    engine config (8 slots, page 16, max_cache 1536, one-shot prefill) on
+    the kernel and the torch backends. Checks: every request finishes with
+    its budget; the kernel run launches paged decode 28 x decode ticks and
+    flash 28 x prefills, every call on ``mma`` (the torch run none);
+    logits agree by ``bf16_rule`` (phase 3's rule, else the kernel run
+    within ``BF16_FP32_CAP`` of the same weights served in fp32 on the
+    torch backend and no farther than ``GEMMA_BF16_SLACK`` x the torch
+    run's distance). A
+    profiled window of ten decode ticks with all eight slots busy, and one
+    profiled prefill of the longest prompt."""
+    t0 = time.perf_counter()
+    cfg = configs.get_config(GEMMA_ARCH)
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    rep = {"params_b": model_lib.param_count(params) / 1e9,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+           "init_s": time.perf_counter() - t0}
+    bodies = main_bodies(torch, kernel_paths, cfg)
+    check(bodies["paged_attention"] == bodies["flash_attention"] == "mma",
+          f"{GEMMA_ARCH}: kernel_path predicts {bodies} at head dim "
+          f"{cfg.head_dim}; its bf16 calls must take the tensor-core bodies")
+    bf16 = {}
+    for backend in ("kernel", "torch"):
+        eng, stats, wall, n, peak = family_serve(
+            torch, eng_mod, params, cfg, gemma_trace(traces, cfg, seed),
+            backend, counters, engine_config(eng_mod, backend))
+        want = family_launches(cfg, stats) if backend == "kernel" \
+            else dict.fromkeys(counters, 0)
+        check(n == want, f"{GEMMA_ARCH} {backend} launches {n} != {want}")
+        paths = check_bodies(counters, n, f"{GEMMA_ARCH} {backend}",
+                             bodies) if backend == "kernel" else None
+        bf16[backend] = eng.completed
+        rep[backend] = {**run_summary(stats, wall),
+                        "prefills": stats["prefills"], "launches": n,
+                        "paths": paths, "peak_mem_gb": peak}
+        del eng
+        torch.cuda.empty_cache()
+    trace = gemma_trace(traces, cfg, seed)
+    rep["profile"] = profile_decode(
+        torch, eng_mod, params, cfg, trace,
+        engine_config(eng_mod, "kernel", capture_logits=False))
+    torch.cuda.empty_cache()
+    rep["profile_prefill"] = profile_prefill(
+        torch, model_lib, params, cfg, max(trace, key=lambda r: len(r.tokens)))
+    torch.cuda.empty_cache()
+
+    def exact():
+        """The same weights upcast to fp32 in place, the torch backend."""
+        t1 = time.perf_counter()
+        params.float()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        eng = family_serve(torch, eng_mod, params, cfg32,
+                           gemma_trace(traces, cfg32, seed), "torch",
+                           counters, engine_config(eng_mod, "torch"))[0]
+        rep["fp32_s"] = time.perf_counter() - t1
+        return eng.completed
+
+    rep["kernel_vs_torch_bf16"] = bf16_rule(torch, model_lib, api,
+                                            GEMMA_ARCH, bf16, exact,
+                                            GEMMA_BF16_SLACK)
+    del params, bf16
+    torch.cuda.empty_cache()
+    rep["phase_s"] = time.perf_counter() - t0
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="on-card smoke of the port")
     ap.add_argument("--seed", type=int, default=0)
@@ -2920,20 +3096,31 @@ def main() -> int:
     verify_t = time_verify(torch, gen, paged_attention_verify,
                            paged_attention_verify_ref, positions)
     flash_t = time_flash(torch, gen, flash_attention, attention_ref)
-    # the head dim 256 on phase 8's path: paligemma-3b's decode, and flash
-    # at its heads (8 / 1) beside SDPA
+    # the head dim 256 on the paths of phases 8 and 12: paligemma-3b's and
+    # gemma-7b's decode, verify at paligemma's heads, and flash at both
+    # models' heads (8 / 1, 16 / 16) beside SDPA
     paged256_t = time_paged(torch, gen, paged_attention, paged_attention_ref,
                             **PALIGEMMA_DECODE)
+    paged256_t["gemma"] = time_paged(torch, gen, paged_attention,
+                                     paged_attention_ref, **GEMMA_DECODE)
+    verify256_t = time_verify(torch, gen, paged_attention_verify,
+                              paged_attention_verify_ref, **PALIGEMMA_VERIFY)
     flash256_t = time_flash(torch, gen, flash_attention, attention_ref, h=8,
                             hk=1, d=256, lengths=(1000,))
+    flash256_t["gemma"] = time_flash(torch, gen, flash_attention,
+                                     attention_ref, h=16, hk=16, d=256,
+                                     lengths=(1000,))
     gmm_t = time_gmm(torch, gen, moe_gmm, gmm_ref)
     print("kernel timing shapes: " + json.dumps(
         {"paged_attention": paged_t["shape"],
          "paged_attention_verify": {**verify_t["shape"],
                                     "library": verify_t["library_note"]},
          "flash_attention": [flash_t["shape"], flash_t["s383"]["shape"]],
-         "paged_attention_d256": paged256_t["shape"],
-         "flash_attention_d256": flash256_t["shape"],
+         "paged_attention_d256": [paged256_t["shape"],
+                                  paged256_t["gemma"]["shape"]],
+         "paged_attention_verify_d256": verify256_t["shape"],
+         "flash_attention_d256": [flash256_t["shape"],
+                                  flash256_t["gemma"]["shape"]],
          "moe_gmm": [gmm_t["shape"], gmm_t["prefill"]["shape"]]}))
     print("paged kernels beside SDPA on the same live K / V, gathered and "
           "padded beforehand (not the same function): " + json.dumps(
@@ -3105,6 +3292,13 @@ def main() -> int:
                           {**counters, "grid_step": grid_step})
     print("mesh: " + json.dumps(mesh_rep))
 
+    phase_start["12"] = time.perf_counter()
+    # -- phase 12: gemma-7b at its full published config ----------------------
+    gemma_rep = gemma_phase(torch, configs, eng_mod, traces, model_lib, api,
+                            args.seed, counters, kernel_paths)
+    phase12 = gemma_rep["kernel"]["launches"]
+    print(f"{GEMMA_ARCH}: " + json.dumps(gemma_rep))
+
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -3117,9 +3311,14 @@ def main() -> int:
          "d256": {k: paged256_t[k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "device_ms")},
+         "d256_gemma": {k: paged256_t["gemma"][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "device_ms")},
          "phase8_launches": {a: n["paged_attention"]
                              for a, n in phase8.items()},
-         "phase9_launches": phase9["paged_attention"]},
+         "phase9_launches": phase9["paged_attention"],
+         "phase12_launches": phase12["paged_attention"],
+         "phase12_paths": gemma_rep["kernel"]["paths"]["paged_attention"]},
         {"name": "paged_attention_verify", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:118",
@@ -3128,7 +3327,11 @@ def main() -> int:
          "head_dims": list(paged_pkg_dims),
          "phase8_launches": {a: n["paged_attention_verify"]
                              for a, n in phase8.items()},
+         "phase12_launches": phase12["paged_attention_verify"],
          **{k: verify_t[k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "device_ms")},
+         "d256": {k: verify256_t[k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "device_ms")}},
         {"name": "flash_attention", "route": "cuda",
@@ -3144,9 +3347,14 @@ def main() -> int:
          "d256": {k: flash256_t[k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "device_ms", "library_device_ms")},
+         "d256_gemma": {k: flash256_t["gemma"][k] for k in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "device_ms", "library_device_ms")},
          "phase8_launches": {a: n["flash_attention"]
                              for a, n in phase8.items()},
-         "phase9_launches": phase9["flash_attention"]},
+         "phase9_launches": phase9["flash_attention"],
+         "phase12_launches": phase12["flash_attention"],
+         "phase12_paths": gemma_rep["kernel"]["paths"]["flash_attention"]},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
          "replaces": "src/repro/kernels/moe_gmm/kernel.py:45",

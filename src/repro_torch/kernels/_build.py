@@ -29,8 +29,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 # The head dims of the bf16 tensor-core bodies of paged_attention.cu and
-# flash_attention.cu (csrc/tensor_core.cuh:mma_dim makes the same choice)
-MMA_HEAD_DIMS = (16, 32, 64, 128)
+# flash_attention.cu (csrc/tensor_core.cuh:mma_dim makes the same choice;
+# D = 112 stays on the CUDA-core bodies: 14 chunks a row do not fit the
+# swizzle)
+MMA_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -14,12 +14,17 @@
 //
 // * bf16 ("mma", the main path): FA2-style on the tensor cores. One CTA of
 //   eight warps per (64-row q block, q head, batch): two groups of four
-//   warps, each warp owning 16 q rows whose Q fragments stay in registers,
-//   split the KV loop between them (even and odd 64-row tiles) and merge
-//   their softmax states at the end, so the heaviest causal block's serial
-//   chain is half its tiles. K / V slots of 128 x D arrive by 16-byte
-//   cp.async in a double-buffered ring of XOR-swizzled shared tiles
-//   (ldmatrix without bank conflicts); S = Q K^T and O += P V run on
+//   warps, each warp owning 16 q rows, split the KV loop between them (even
+//   and odd KV tiles) and merge their softmax states at the end, so the
+//   heaviest causal block's serial chain is half its tiles. K / V slots of
+//   two tiles arrive by 16-byte cp.async in a double-buffered ring of
+//   XOR-swizzled shared tiles (ldmatrix without bank conflicts). Up to D =
+//   128 a tile is 64 rows and the Q fragments stay in registers; at D = 256
+//   (gemma-7b, paligemma-3b) a tile is 32 rows, so that Q and the ring take
+//   160 KB of the 227 KB a block may have (64-row tiles would take 288 KB),
+//   and the Q fragments are re-read by ldmatrix at each k step (held, they
+//   would take 64 registers beside the output accumulator's 128: 16 rows x
+//   256 fp32 over a warp). S = Q K^T and O += P V run on
 //   mma.sync m16n8k16 (bf16 in, fp32 accumulate), the online softmax in
 //   registers with exp2f on pre-scaled scores. P goes from
 //   the S accumulators to the A fragments of the PV product in registers,
@@ -29,12 +34,14 @@
 //   wave. The score matrix never reaches HBM. What still costs: every warp
 //   reads the whole K and V tile from shared memory for its own mma.sync B
 //   fragments (64 KB per q block and KV tile), where wgmma would read them
-//   once per warpgroup.
+//   once per warpgroup. At D = 256 that traffic (with the Q re-reads, 40 KB
+//   a warp for each 32-row tile's 128 mma) and the whole K / V prefix
+//   copied into every q block's CTA bound the body, one CTA an SM.
 // * fp32 ("cuda_core"): the first version on CUDA cores in fp32, exact to
 //   summation order against the plain version (tensor cores would need
 //   TF32, three decimal digits). bf16 whose pointers are not 16-byte
-//   aligned (cp.async's unit) takes it too, and bf16 at the head dims 112
-//   and 256 (tensor_core.cuh:mma_dim). Two threads per q row.
+//   aligned (cp.async's unit) takes it too, and bf16 at the head dim 112
+//   (tensor_core.cuh:mma_dim). Two threads per q row.
 //
 // Layouts: q (B, H, S, D); k, v (B, Hkv, S, D); out (B, H, S, D).
 #include <cuda_runtime.h>
@@ -166,7 +173,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int kStages = 2;                     // K/V ring depth
 constexpr int kGroups = 2;                     // warp groups splitting the KV loop
 constexpr int kMmaThreads = kGroups * kThreads;   // 8 warps
-constexpr int kStep = kGroups * kBlock;        // kv rows per ring slot
+
+// KV rows of one group's tile: 64, or 32 at D = 256 (the ring's shared
+// memory); a ring slot holds one tile per group.
+template <int D>
+__host__ __device__ constexpr int kv_rows() { return D > 128 ? 32 : 64; }
+template <int D>
+__host__ __device__ constexpr int kv_step() { return kGroups * kv_rows<D>(); }
+// Q fragments held in registers (KD x 4 a thread) up to D = 128
+template <int D>
+__host__ __device__ constexpr bool hold_q() { return D <= 128; }
 
 using namespace repro_tc;
 
@@ -188,7 +204,7 @@ __device__ __forceinline__ void load_tile(uint4* dst,
 
 // Eight warps per (64-row q block, q head, batch): warp group g (warps
 // 4g .. 4g+3, 16 q rows each) runs the online softmax over KV tiles g,
-// g + 2, g + 4, ... (each ring slot holds two 64-row tiles, one per group),
+// g + 2, g + 4, ... (each ring slot holds two KVR-row tiles, one per group),
 // which halves the serial KV chain of the heaviest causal blocks; the two
 // partial (max, sum, output) states are merged at the end.
 template <int D>
@@ -199,11 +215,14 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  __nv_bfloat16* __restrict__ out, int h, int hkv, int s,
                  int causal, float scale_log2) {
   constexpr int CPR = D / 8;            // 16-byte chunks per row
+  constexpr int KVR = kv_rows<D>();     // KV rows of one group's tile
+  constexpr int KS = kv_step<D>();      // KV rows of a ring slot
   constexpr int QT = kBlock * CPR;      // 16-byte units of the Q tile
-  constexpr int KVT = kStep * CPR;      // 16-byte units of a K or V ring slot
+  constexpr int KVT = KS * CPR;         // 16-byte units of a K or V ring slot
   constexpr int KD = D / 16;            // k steps over D (S = Q K^T)
   constexpr int ND = D / 8;             // 8-wide output column tiles
-  constexpr int NK = kBlock / 8;        // 8-wide score column tiles
+  constexpr int NK = KVR / 8;           // 8-wide score column tiles
+  constexpr bool HQ = hold_q<D>();
   const int head = blockIdx.x, b = blockIdx.z;
   const int qb = gridDim.y - 1 - blockIdx.y;   // heaviest q block first
   const int kvh = head / (h / hkv);
@@ -223,8 +242,11 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kg = k + kvoff;
   const __nv_bfloat16* vg = v + kvoff;
 
-  const int nkv_all = (s + kBlock - 1) / kBlock;
-  const int nkv = causal ? min(qb + 1, nkv_all) : nkv_all;   // 64-row tiles
+  // KVR-row tiles: all of them, or (causal) those starting before the q
+  // block's last row
+  const int nkv_all = (s + KVR - 1) / KVR;
+  const int nkv = causal ? min((q0 + kBlock + KVR - 1) / KVR, nkv_all)
+                         : nkv_all;
   const int nsteps = (nkv + kGroups - 1) / kGroups;           // ring slots
 
   // prologue: Q and the first kStages - 1 slots, one group per slot
@@ -232,13 +254,13 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st < nsteps) {
-      load_tile<D, kStep>(ks + st * KVT, kg, st * kStep, s, tid);
-      load_tile<D, kStep>(vs + st * KVT, vg, st * kStep, s, tid);
+      load_tile<D, KS>(ks + st * KVT, kg, st * KS, s, tid);
+      load_tile<D, KS>(vs + st * KVT, vg, st * KS, s, tid);
     }
     cp_async_commit();
   }
 
-  uint32_t qf[KD][4];
+  uint32_t qf[HQ ? KD : 1][4];          // (HQ) the Q fragments
   float o[ND][4];
 #pragma unroll
   for (int i = 0; i < ND; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
@@ -251,45 +273,54 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     {
       const int jn = j + kStages - 1;
       if (jn < nsteps) {
-        load_tile<D, kStep>(ks + (jn % kStages) * KVT, kg, jn * kStep, s, tid);
-        load_tile<D, kStep>(vs + (jn % kStages) * KVT, vg, jn * kStep, s, tid);
+        load_tile<D, KS>(ks + (jn % kStages) * KVT, kg, jn * KS, s, tid);
+        load_tile<D, KS>(vs + (jn % kStages) * KVT, vg, jn * KS, s, tid);
       }
       cp_async_commit();
     }
-    if (j == 0) {
+    if constexpr (HQ) {
+      if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        ldsm_x4(smem_u32(qs + swz<CPR>(rw * 16 + (lane & 15),
-                                       kk * 2 + (lane >> 4))),
-                qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
+        for (int kk = 0; kk < KD; ++kk) ldsm_a<CPR>(qs, rw * 16, kk, lane, qf[kk]);
+      }
     }
-    const int tile = j * kGroups + grp;   // this group's 64-row KV tile
+    const int tile = j * kGroups + grp;   // this group's KV tile
     if (tile >= nkv) continue;
-    const int r_kv = grp * kBlock;        // its first row in the slot
+    const int r_kv = grp * KVR;           // its first row in the slot
     const uint4* kt = ks + (j % kStages) * KVT;
     const uint4* vt = vs + (j % kStages) * KVT;
 
-    // S = Q K^T: 16 rows x 64 kv columns per warp
+    // S = Q K^T: 16 rows x KVR kv columns per warp
     float sc[NK][4];
 #pragma unroll
     for (int i = 0; i < NK; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4];
+      if constexpr (HQ) {
+        qa[0] = qf[kk][0]; qa[1] = qf[kk][1]; qa[2] = qf[kk][2]; qa[3] = qf[kk][3];
+      } else {
+        ldsm_a<CPR>(qs, rw * 16, kk, lane, qa);
+      }
 #pragma unroll
       for (int np = 0; np < NK / 2; ++np) {
         uint32_t b0, b1, b2, b3;
         ldsm_x4(smem_u32(kt + swz<CPR>(r_kv + np * 16 + (lane & 7) + (lane >> 4) * 8,
                                        kk * 2 + ((lane >> 3) & 1))),
                 b0, b1, b2, b3);
-        mma_bf16(sc[2 * np], qf[kk], b0, b1);
-        mma_bf16(sc[2 * np + 1], qf[kk], b2, b3);
+        mma_bf16(sc[2 * np], qa, b0, b1);
+        mma_bf16(sc[2 * np + 1], qa, b2, b3);
       }
     }
 
-    // scale into the log2 domain; mask the ragged tail and the future
-    const int k0 = tile * kBlock;
-    const bool masked = k0 + kBlock > s ||
-                        (causal && k0 + kBlock - 1 > q0 + rw * 16);
+    // scale into the log2 domain; mask the ragged tail and the future. With
+    // 32-row tiles a warp's rows may all precede a tile; its running max
+    // then stays put (or, on group 1's first tile of q block 0, stays -1e30
+    // with a junk sum that the merge weights by exp2(-1e30 - m) = 0: group
+    // 0's tile 0 holds a live key of every row).
+    const int k0 = tile * KVR;
+    const bool masked = k0 + KVR > s ||
+                        (causal && k0 + KVR - 1 > q0 + rw * 16);
 #pragma unroll
     for (int nt = 0; nt < NK; ++nt) {
 #pragma unroll
@@ -431,7 +462,8 @@ int launch_cuda_core(const void* q, const void* k, const void* v, void* out,
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* out, int b,
                int h, int hkv, int s, int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(uint4) * (kBlock + 2 * kStages * kStep) * (D / 8);
+  const size_t smem =
+      sizeof(uint4) * (kBlock + 2 * kStages * kv_step<D>()) * (D / 8);
   cudaError_t err = cudaFuncSetAttribute(
       flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -474,7 +506,7 @@ int launch_d(int path, const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16; d in {16, 32, 64, 112, 128, 256}. Writes
 // the body it takes to *path: 1 ("mma") for bf16 with 16-byte-aligned
-// pointers (what cp.async needs) at d in {16, 32, 64, 128}, else 0
+// pointers (what cp.async needs) at d in {16, 32, 64, 128, 256}, else 0
 // ("cuda_core"). Returns cudaGetLastError().
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int b, int h,

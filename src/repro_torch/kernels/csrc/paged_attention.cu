@@ -61,9 +61,15 @@
 //     and PV on mma.sync with V by ldmatrix.trans. P goes in as two bf16
 //     parts, hi + lo, so it keeps ~16 bits, close to the fp32 P of the TPU
 //     kernels (rounding P to bf16 once, as flash does, moved the MoE spec
-//     run's verify rows off its decode rows).
+//     run's verify rows off its decode rows). Up to D = 128 the Q fragments
+//     stay in registers; at D = 256 (gemma-7b, paligemma-3b) they are
+//     re-read by ldmatrix at each k step (held, they would take 64
+//     registers beside the output accumulator's 128), and the three-stage
+//     ring of 64-token tiles takes 192 KB, the Q tile 8 KB and the table at
+//     most 2 KB: one CTA an SM, which a kernel bound by bytes can afford
+//     (each CTA keeps two 64 KB tiles in flight).
 //   - "cuda_core" (fp32, bf16 that is not 16-byte aligned, and bf16 at the
-//     head dims 112 and 256, which the mma body does not take): eight
+//     head dim 112, which the mma body does not take): eight
 //     warps, 8 tokens of a tile each (four warps of 16 spent ~2.4 us a tile
 //     on their serial instruction chains); the 8 rows of a row block in
 //     registers (rows past the kv head's skipped); a K row of CPR 16-byte
@@ -551,6 +557,7 @@ __device__ __forceinline__ void mma_body(const Params& p) {
   constexpr int KVT = kTile * CPR;
   constexpr int KD = D / 16;          // k steps of S = Q K^T
   constexpr int ND = D / 8;           // 8-wide output column tiles
+  constexpr bool HQ = D <= 128;       // Q fragments held in registers
   using bf = __nv_bfloat16;
   const Work w = work_of(p, kMmaRows);
   if (p.nsplit > 1 && w.ntok == 0) {
@@ -588,7 +595,7 @@ __device__ __forceinline__ void mma_body(const Params& p) {
     cp_async_commit();                                 // (Q rides in group 0)
   }
 
-  uint32_t qf[KD][4];
+  uint32_t qf[HQ ? KD : 1][4];                        // (HQ) Q fragments
   float o[ND][4];
 #pragma unroll
   for (int i = 0; i < ND; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
@@ -605,11 +612,11 @@ __device__ __forceinline__ void mma_body(const Params& p) {
       }
       cp_async_commit();
     }
-    if (j == 0) {
+    if constexpr (HQ) {
+      if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        ldsm_x4(smem_u32(qs + swz<CPR>(lane & 15, kk * 2 + (lane >> 4))),
-                qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
+        for (int kk = 0; kk < KD; ++kk) ldsm_a<CPR>(qs, 0, kk, lane, qf[kk]);
+      }
     }
     const int rel0 = j * kTile + warp * kWarpTokens;   // this warp's 16 tokens
     if (rel0 >= w.ntok) continue;
@@ -622,12 +629,17 @@ __device__ __forceinline__ void mma_body(const Params& p) {
     for (int i = 0; i < 2; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-      uint32_t b0, b1, b2, b3;
+      uint32_t qa[4], b0, b1, b2, b3;
+      if constexpr (HQ) {
+        qa[0] = qf[kk][0]; qa[1] = qf[kk][1]; qa[2] = qf[kk][2]; qa[3] = qf[kk][3];
+      } else {
+        ldsm_a<CPR>(qs, 0, kk, lane, qa);
+      }
       ldsm_x4(smem_u32(kt + swz<CPR>(r_kv + (lane & 7) + (lane >> 4) * 8,
                                      kk * 2 + ((lane >> 3) & 1))),
               b0, b1, b2, b3);
-      mma_bf16(sc[0], qf[kk], b0, b1);
-      mma_bf16(sc[1], qf[kk], b2, b3);
+      mma_bf16(sc[0], qa, b0, b1);
+      mma_bf16(sc[1], qa, b2, b3);
     }
 
     // scale into the log2 domain; mask each row at its own causal bound
@@ -906,7 +918,7 @@ int dispatch(const void* q, const void* kp, const void* vp, const void* table,
 // nsplit and pages_per_split come from ops.py:split_rule; `partials` holds
 // B * Hkv * nsplit * R * (D + 2) floats (R = G, or Sq * G) when nsplit > 1,
 // else may be null. Writes the body it takes to *path: 1 ("mma") for bf16
-// with 16-byte-aligned pointers at d in {16, 32, 64, 128}, else 0
+// with 16-byte-aligned pointers at d in {16, 32, 64, 128, 256}, else 0
 // ("cuda_core"). Returns cudaGetLastError() after its launches.
 extern "C" int repro_paged_attention(const void* q, const void* k_pages,
                                      const void* v_pages, const void* table,

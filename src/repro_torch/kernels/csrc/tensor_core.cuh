@@ -69,6 +69,15 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
       : "r"(addr));
 }
 
+// A fragments of the 16 x 16 block at rows row0 .. row0 + 15 and k step kk
+// (columns 16 kk ..) of a swizzled row-major tile of CPR chunks a row.
+template <int CPR>
+__device__ __forceinline__ void ldsm_a(const uint4* tile, int row0, int kk,
+                                       int lane, uint32_t (&a)[4]) {
+  ldsm_x4(smem_u32(tile + swz<CPR>(row0 + (lane & 15), kk * 2 + (lane >> 4))),
+          a[0], a[1], a[2], a[3]);
+}
+
 // c += a * b on one 16 x 8 x 16 tile, fp32 accumulation.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -89,12 +98,14 @@ inline bool aligned16(const void* p) {
 }
 
 // The head dims of the tensor-core bodies of paged_attention.cu and
-// flash_attention.cu (kernels/_build.py:MMA_HEAD_DIMS). 112 and 256 take the
-// CUDA-core bodies in bf16 too: a 256-wide tile pair of K / V slots would
-// not fit the ring in shared memory, and 112 / 8 chunks a row do not fit the
-// swizzle.
+// flash_attention.cu (kernels/_build.py:MMA_HEAD_DIMS). At 256 both bodies
+// re-read the Q fragments from shared memory at every k step (held, they
+// would take 64 registers beside the 128 of the output accumulator), and
+// flash takes 32-row K / V tiles so that its ring fits in shared memory.
+// 112 takes the CUDA-core bodies in bf16 too: 112 / 8 chunks a row do not
+// fit the swizzle.
 __host__ __device__ constexpr bool mma_dim(int d) {
-  return d == 16 || d == 32 || d == 64 || d == 128;
+  return d == 16 || d == 32 || d == 64 || d == 128 || d == 256;
 }
 
 }  // namespace repro_tc

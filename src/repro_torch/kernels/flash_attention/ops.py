@@ -29,7 +29,7 @@ def kernel_path(dtype: torch.dtype, head_dim: int,
     """The body a CUDA call with inputs of ``dtype`` takes: ``"mma"`` (bf16
     on the tensor cores) at a head dim of ``_build.MMA_HEAD_DIMS``, or
     ``"cuda_core"`` (fp32, bf16 whose pointers are not 16-byte aligned,
-    which cp.async needs, and bf16 at D = 112 or 256). The C entry point
+    which cp.async needs, and bf16 at D = 112). The C entry point
     makes the same choice."""
     return "mma" if dtype == torch.bfloat16 and aligned \
         and head_dim in _build.MMA_HEAD_DIMS else "cuda_core"

@@ -37,7 +37,7 @@ def kernel_path(dtype: torch.dtype, head_dim: int,
     tensor cores) for bf16 with 16-byte-aligned pointers (what cp.async and
     ldmatrix need) at a head dim of ``_build.MMA_HEAD_DIMS``, else
     ``"cuda_core"`` (fp32, bf16 views that are not aligned, and bf16 at
-    D = 112 or 256). Not a function of the rows: decode at G rows and verify
+    D = 112). Not a function of the rows: decode at G rows and verify
     at Sq * G rows take one body, so each verify row is bitwise the decode
     step at its position (the MoE spec run's bf16 agreement rests on it).
     The C entry points make the same choice."""

@@ -280,8 +280,25 @@ def test_flash_kernel_matches_plain(card, d, s, b, hk, grp, causal, dtype,
     are ~0.03, below the absolute bf16 limit, so a lost KV tile shows only
     there). The launch is counted under the body that ``kernel_path`` names
     (bf16: tensor cores, fp32: CUDA cores)."""
-    g = torch.Generator(device=card).manual_seed(s * 1009 + d * 7 + b + grp)
-    q = torch.randn(b, hk * grp, s, d, generator=g, device=card).to(dtype)
+    _check_flash(card, s * 1009 + d * 7 + b + grp, b, hk * grp, hk, s, d,
+                 causal, dtype, tol, row_tol)
+
+
+@pytest.mark.parametrize("s", [65, 383])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol,row_tol", [(torch.float32, 5e-5, 1e-4),
+                                               (torch.bfloat16, 5e-2, 2e-2)])
+def test_flash_kernel_gemma_7b_heads(card, s, causal, dtype, tol, row_tol):
+    """gemma-7b's prefill heads, 16 / 16 at D = 256 (MHA, 32-row KV tiles
+    in bf16), a tile edge (65) and a ragged tail (383): the limits and the
+    body of ``test_flash_kernel_matches_plain``."""
+    _check_flash(card, s * 31 + 256, 1, 16, 16, s, 256, causal, dtype, tol,
+                 row_tol)
+
+
+def _check_flash(card, seed, b, h, hk, s, d, causal, dtype, tol, row_tol):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(b, h, s, d, generator=g, device=card).to(dtype)
     k = torch.randn(b, hk, s, d, generator=g, device=card).to(dtype)
     v = torch.randn(b, hk, s, d, generator=g, device=card).to(dtype)
     n0 = flash_attention.launches
