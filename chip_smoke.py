@@ -14,7 +14,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    first positions (page boundaries, rows past the table's capacity), plus
    MHA and MQA, and at Sq = 1 bitwise the decode kernel at lengths = pos + 1;
    both also at D = 256 (paligemma-3b's 8 / 1 heads and gemma-7b's 16 /
-   16) and at D = 112 (kimi-k2's 64 / 8) (``PAGED_CASES``,
+   16) and at D = 112 (kimi-k2's 64 / 8, on "mma") (``PAGED_CASES``,
    ``VERIFY_CASES``); decode also at phase 8's shapes, musicgen-medium's 24
    / 24 heads at D = 64 over a 26-page table and paligemma-3b's over a
    25-page one; flash attention at H=15, Hkv=5, D=64 for S in {1, 17, 64,
@@ -24,7 +24,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    gemma-7b's 16 / 16 heads (D = 256) for S in {65, 383}, causal
    and not; the MoE grouped matmul at granite-moe-3b-a800m's widths (E, C, D, F)
    = (40, 64, 1536, 512), (40, 64, 512, 1536), (40, 320, 1536, 512), (40,
-   252, 1536, 512) and at (3, 37, 96, 80), with seeded group sizes that
+   252, 1536, 512), at (3, 37, 96, 80) and at kimi-k2's (D = 7168, F = 2048
+   both ways at C = 4 and 28, over 8 experts), with seeded group sizes that
    include 0 and C, and live values, then NaN, in the rows past each group.
    Tolerances: 1e-5 (paged, verify) / 5e-5 (flash) in fp32, 5e-2 in bf16,
    and for paged decode, verify and flash also the worst row's ||out - ref||
@@ -33,10 +34,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    with its dead rows exactly 0.0. Every kernel but the grid step has two
    bodies (the tensor cores, "mma"; CUDA cores, "cuda_core"), picked from
    dtype, shapes and alignment: bf16 calls take "mma" (the grouped matmul
-   only where D and F are multiples of 8, the attention kernels at head
-   dims 16, 32, 64, 128 and 256, all only with 16-byte-aligned pointers),
-   fp32 calls and bf16 at D = 112 "cuda_core"; every check must count its
-   launch under the body ``kernel_path`` names. Then each kernel, its plain
+   only where D and F are multiples of 8, the attention kernels at every
+   head dim, all only with 16-byte-aligned pointers), fp32 calls
+   "cuda_core"; every check must count its launch under the body
+   ``kernel_path`` names. Then each kernel, its plain
    version and a library call (SDPA for flash, ``torch.bmm`` for the
    grouped matmul) are timed with CUDA events at main-path shapes, beside
    the bound from the bytes and flops those shapes need (decode: B=8 at lengths 102-1100; verify: B=8, Sq=5 at the spec
@@ -44,9 +45,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    paligemma-3b's decode shape (B=8, 8 / 1 heads, lengths 304-372) and at
    gemma-7b's (B=8, 16 / 16 heads, lengths 102-1016), verify at
    paligemma's (Sq = 5 from those lengths), flash at S=1000 with 8 / 1 and
-   16 / 16 heads beside SDPA; the grouped matmul at the
-   decode tick's gate / up shape with one tick's group sizes and at a
-   1000-token prefill's (C = 252)). No single PyTorch call gathers pages,
+   16 / 16 heads beside SDPA; at D = 112 decode and verify at kimi-k2's
+   64 / 8 heads over gemma-7b's lengths, flash at S = 1000 beside SDPA;
+   the grouped matmul at the decode tick's gate / up shape with one tick's
+   group sizes and at a 1000-token prefill's (C = 252), and at kimi-k2's
+   (384 experts, 7168 x 2048, C = 4 and 28)). No single PyTorch call
+   gathers pages,
    so paged decode and verify have no library time; beside them SDPA over
    the same live K / V already gathered into a padded contiguous layout
    (gather not timed) is printed, labelled as not the same function. Every
@@ -255,12 +259,27 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    from them than ``GEMMA_BF16_SLACK`` x the torch run), with the ratios
    printed. ``torch.profiler`` windows of ten decode ticks (all eight slots
    busy) and of one prefill of the 1,000-token prompt.
+13. kimi-k2-1t-a32b at its published width cut to one of its 61 layers
+   (``KIMI_LAYERS``; d_model 7168, 64 / 8 heads at head_dim 112, 384
+   experts top-8, expert d_ff 2048, vocab 163,840, immune router with zero
+   bias, bf16, 18.2 B parameters; random weights from ``--seed``) serves
+   phase 12's 8 requests on phase 3's engine config, on the kernel and the
+   torch backends. Every request finishes with its budget; the kernel run
+   launches flash once a prefill, paged decode once a decode tick and the
+   grouped matmul 3 x (ticks + prefills), every call on "mma" (the D = 112
+   tensor-core bodies), the torch run nothing. Phase 6's MoE rule: the
+   same weights built afresh in fp32 from the seed agree between the two
+   backends within 1e-3 (the kernel run on the CUDA-core bodies), and the
+   bf16 kernel run is no farther from the fp32 run than the bf16 torch run
+   is, within ``MOE_BF16_SLACK``. Peak memory of each build and run;
+   ``torch.profiler`` windows of ten decode ticks and of one 1,000-token
+   prefill.
 
-Phases 3-12 each set every launch count to 0 just before they drive their
+Phases 3-13 each set every launch count to 0 just before they drive their
 path and read the counts just after. Phases 3 and 12 and every phase-8
-model but recurrentgemma-9b run at full depth; phases 4-6, 9 and
+model but recurrentgemma-9b run at full depth; phases 4-6, 9, 13 and
 recurrentgemma-9b at the depths above, so the whole run stays inside
-1,200 s.
+1,200 s (phase 13 also so that its weights fit the card).
 
 The second-to-last lines are one JSON object ``{"kernels": [...]}`` and the
 ``nvidia-smi`` name/power line; the last line is
@@ -270,6 +289,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -414,6 +434,13 @@ def device_ms(torch, fn, iters: int = 20):
     return None
 
 
+# what the kernels line reports of each timed shape (LIB_TIMED: also the
+# library call's device time, where one PyTorch call computes the function)
+TIMED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+         "device_ms")
+LIB_TIMED = TIMED + ("library_device_ms",)
+
+
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -452,8 +479,8 @@ def paged_inputs(torch, gen, b, h, hk, d, page, maxp, dtype, lengths=None):
     return q, kp, vp, table.to(dev), lengths
 
 
-# (B, H, Hkv, D, page, maxp): smollm-360m's width, MHA, MQA, then the head
-# dims beyond the tensor-core body's: paligemma-3b (D = 256, MQA 8 / 1),
+# (B, H, Hkv, D, page, maxp): smollm-360m's width, MHA, MQA, then the wider
+# head dims of the served models: paligemma-3b (D = 256, MQA 8 / 1),
 # gemma-7b (D = 256, MHA 16 / 16) and kimi-k2 (D = 112, GQA 64 / 8); last,
 # phase 8's decode shapes: musicgen-medium (24 / 24 heads at D = 64, G = 1,
 # a 26-page table) and paligemma-3b (a 25-page table), each with the split
@@ -660,6 +687,14 @@ PALIGEMMA_VERIFY = dict(h=8, hk=1, d=256, maxp=25,
 # its 1536-token block table, lengths of the trace's in-flight mix
 GEMMA_DECODE = dict(h=16, hk=16, d=256, maxp=96,
                     lengths=[116, 399, 1016, 130, 391, 102, 403, 1016])
+# kimi-k2's decode shape in phase 13: 8 slots, GQA 64 / 8 at D = 112 over the
+# same 1536-token block table and in-flight lengths (its trace is gemma-7b's)
+KIMI_DECODE = dict(h=64, hk=8, d=112, maxp=96,
+                   lengths=GEMMA_DECODE["lengths"])
+# verify at the same heads and table, Sq = 5 from those lengths (no main path
+# verifies at D = 112: phase 13 does not speculate)
+KIMI_VERIFY = dict(h=64, hk=8, d=112, maxp=96,
+                   positions=KIMI_DECODE["lengths"])
 
 
 def time_paged(torch, gen, paged_attention, paged_attention_ref, h=15, hk=5,
@@ -805,9 +840,15 @@ def time_flash(torch, gen, flash_attention, attention_ref, h=15, hk=5, d=64,
 
 # (E, C, D, F): granite-moe-3b-a800m's gate/up and down products at decode
 # (8 slots x top-8, dropless: C = 64), the gate/up product at verify (8 x 5
-# rows: C = 320) and at a 1000-token prefill (cf 1.25: C = 252), and odd sizes
+# rows: C = 320) and at a 1000-token prefill (cf 1.25: C = 252), odd sizes,
+# then kimi-k2's expert widths both ways (gate / up D = 7168 -> F = 2048,
+# down 2048 -> 7168) at its decode capacity (``moe.capacity``: 4) and its
+# 1000-token prefill's (28), over 8 of its 384 experts so that the plain
+# version's fp32 copy of the weights stays small
 GMM_SHAPES = [(40, 64, 1536, 512), (40, 64, 512, 1536), (40, 320, 1536, 512),
-              (40, 252, 1536, 512), (3, 37, 96, 80)]
+              (40, 252, 1536, 512), (3, 37, 96, 80),
+              (8, 4, 7168, 2048), (8, 4, 2048, 7168), (8, 28, 7168, 2048),
+              (8, 28, 2048, 7168)]
 
 
 def decode_group_sizes(torch, gen, e: int, tokens: int, k: int):
@@ -863,26 +904,31 @@ def check_gmm(torch, gen, moe_gmm, gmm_ref, kernel_path) -> list:
     return cases
 
 
-def time_gmm_at(torch, gen, moe_gmm, gmm_ref, shape, sizes) -> dict:
+def time_gmm_at(torch, gen, moe_gmm, gmm_ref, shape, sizes,
+                copies: int = 4) -> dict:
     """The gate / up product at ``shape`` (bf16) with ``sizes`` live rows
-    per expert, dead rows of x zero as the dispatch leaves them. Four weight
-    copies (252 MB) rotate so the weights come from HBM, as across the 32
-    layers of a tick. ``torch.bmm`` on the same (E, C, D) x (E, D, F)
-    computes every row of every expert."""
+    per expert, dead rows of x zero as the dispatch leaves them. ``copies``
+    weight copies (four: 252 MB at granite-moe's widths) rotate so the
+    weights come from HBM, as across the 32 layers of a tick (one copy of
+    kimi-k2's 11.3 GB is far past the 50 MB L2). ``torch.bmm`` on the same
+    (E, C, D) x (E, D, F) computes every row of every expert."""
     e, c, d, f = shape
     x = torch.randn(e, c, d, generator=gen, device="cuda").to(torch.bfloat16)
     x = torch.where(torch.arange(c, device="cuda")[None, :, None]
                     < sizes[:, None, None], x, torch.zeros((), device="cuda",
                                                            dtype=x.dtype))
-    ws = [(torch.randn(e, d, f, generator=gen, device="cuda") / d ** 0.5)
-          .to(torch.bfloat16) for _ in range(4)]
+    ws = [torch.randn(e, d, f, generator=gen, device="cuda").div_(d ** 0.5)
+          .to(torch.bfloat16) for _ in range(copies)]
     it = iter(range(10 ** 9))
-    ms = cuda_ms(torch, lambda: moe_gmm(x, ws[next(it) % 4], sizes))
-    plain_ms = cuda_ms(torch, lambda: gmm_ref(x, ws[next(it) % 4], sizes),
-                       iters=20)
-    lib_ms = cuda_ms(torch, lambda: torch.bmm(x, ws[next(it) % 4]))
-    dev_ms = device_ms(torch, lambda: moe_gmm(x, ws[next(it) % 4], sizes))
-    lib_dev_ms = device_ms(torch, lambda: torch.bmm(x, ws[next(it) % 4]))
+
+    def w():
+        return ws[next(it) % copies]
+
+    ms = cuda_ms(torch, lambda: moe_gmm(x, w(), sizes))
+    plain_ms = cuda_ms(torch, lambda: gmm_ref(x, w(), sizes), iters=20)
+    lib_ms = cuda_ms(torch, lambda: torch.bmm(x, w()))
+    dev_ms = device_ms(torch, lambda: moe_gmm(x, w(), sizes))
+    lib_dev_ms = device_ms(torch, lambda: torch.bmm(x, w()))
     err = (moe_gmm(x, ws[0], sizes).float()
            - gmm_ref(x, ws[0], sizes).float()).abs().max().item()
     es = 2
@@ -908,13 +954,20 @@ def time_gmm(torch, gen, moe_gmm, gmm_ref) -> dict:
     with one decode tick's group sizes (8 lanes x top-8 over 40 experts);
     then (under ``prefill``) a 1000-token prompt's gate / up product at its
     capacity C = 252 (cf 1.25), its 8,000 assignments drawn uniformly and
-    cut at C."""
-    e = 40
-    res = time_gmm_at(torch, gen, moe_gmm, gmm_ref, (e, 64, 1536, 512),
-                      decode_group_sizes(torch, gen, e, 8, 8))
-    pre = decode_group_sizes(torch, gen, e, 1000, 8).clamp(max=252)
+    cut at C; then the same two at kimi-k2's widths in phase 13 (under
+    ``kimi`` and ``kimi_prefill``: 384 experts, D = 7168, F = 2048, C = 4
+    and 28)."""
+    res = time_gmm_at(torch, gen, moe_gmm, gmm_ref, (40, 64, 1536, 512),
+                      decode_group_sizes(torch, gen, 40, 8, 8))
+    pre = decode_group_sizes(torch, gen, 40, 1000, 8).clamp(max=252)
     res["prefill"] = time_gmm_at(torch, gen, moe_gmm, gmm_ref,
-                                 (e, 252, 1536, 512), pre)
+                                 (40, 252, 1536, 512), pre)
+    res["kimi"] = time_gmm_at(torch, gen, moe_gmm, gmm_ref,
+                              (384, 4, 7168, 2048),
+                              decode_group_sizes(torch, gen, 384, 8, 8), 1)
+    pre = decode_group_sizes(torch, gen, 384, 1000, 8).clamp(max=28)
+    res["kimi_prefill"] = time_gmm_at(torch, gen, moe_gmm, gmm_ref,
+                                      (384, 28, 7168, 2048), pre, 1)
     return res
 
 
@@ -1131,6 +1184,13 @@ SPEC_LAYERS = 16                          # phases 4-5, smollm-360m: 32
 MOE_LAYERS = 16                           # phase 6, granite-moe-3b-a800m: 32
 FAMILY_LAYERS = {"recurrentgemma-9b": 20}  # phase 8: 38 (6 groups + tail)
 FLEET_LAYERS = 16                         # phase 9, smollm-360m: 32
+# Phase 13, kimi-k2-1t-a32b: 1 of its 61 layers, every width published. One
+# layer holds 18.20 B parameters (the experts 3 x 384 x 7168 x 2048 = 16.91
+# B, the tied embedding 1.17 B, attention 0.116 B): 36.4 GB in bf16, 72.8 GB
+# in fp32. Two layers take 70.4 GB in bf16 before the 22.5 GB fp32 draw of
+# an expert leaf (``layers._normal`` draws in fp32, then casts): no fit on
+# one 80 GB card.
+KIMI_LAYERS = 1
 
 
 def spec_trace(traces, cfg, seed: int):
@@ -1592,28 +1652,33 @@ def family_config(eng_mod, cfg, backend: str, capture_logits: bool = True):
 
 
 def family_launches(cfg, stats) -> dict:
-    """Launches a kernel-backend run must count: paged decode once a decode
-    tick in each full-attention layer, flash once a one-shot prefill in each
-    full-attention layer of a causal (not prefix-LM) stack; nothing else
-    (sliding-window, SSM and RG-LRU layers take no kernel)."""
+    """Launches a kernel-backend run without speculation must count: paged
+    decode once a decode tick in each full-attention layer, flash once a
+    one-shot prefill in each full-attention layer of a causal (not
+    prefix-LM) stack, the grouped matmul three times (gate, up, down) a
+    layer of an MoE stack each decode tick and one-shot prefill (phase 6's
+    count); nothing else (sliding-window, SSM and RG-LRU layers take no
+    kernel)."""
     # full-attention layers: none in the SSM, and none in the hybrid (its
     # attention layers are all sliding-window)
     attn = 0 if cfg.family in ("ssm", "hybrid") else cfg.num_layers
+    moe = cfg.num_layers if cfg.family == "moe" else 0
     return {"paged_attention": attn * stats["decode_ticks"],
             "paged_attention_verify": 0,
             "flash_attention": (0 if cfg.family == "vlm" else attn)
             * stats["prefills"],
-            "moe_gmm": 0}
+            "moe_gmm": 3 * moe * (stats["decode_ticks"] + stats["prefills"])}
 
 
 def family_serve(torch, eng_mod, params, cfg, trace, backend: str,
-                 counters: dict, ecfg=None):
+                 counters: dict, ecfg=None, router_bias=None):
     """Serve ``trace`` on the card (engine config ``ecfg``, by default
-    ``family_config``'s), every launch count set to 0 just before; returns
-    (engine, stats, wall s, launches, peak GB)."""
+    ``family_config``'s; an MoE stack's ``router_bias``), every launch count
+    set to 0 just before; returns (engine, stats, wall s, launches, peak
+    GB)."""
     eng = eng_mod.Engine(params, cfg,
                          ecfg or family_config(eng_mod, cfg, backend),
-                         device="cuda")
+                         device="cuda", router_bias=router_bias)
     torch.cuda.reset_peak_memory_stats()
     stats, wall, n = run_counted(torch, counters,
                                  lambda: eng.run(trace, max_ticks=2000))
@@ -2076,9 +2141,7 @@ def vlsi_phase(torch, counters: dict, seed: int) -> tuple:
                            **sched}
 
     # the main path's call: the observer's stack of four label planes
-    kern = {**{k: timing["4x80x128"][k] for k in (
-        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "device_ms")}, "launches": gs_n,
+    kern = {**{k: timing["4x80x128"][k] for k in TIMED}, "launches": gs_n,
         "paths": report["fig3"]["grid_step_paths"]}
     kern["max_abs_err"] = max(c["max_abs_err"]
                               for c in report["grid_step_checks"])
@@ -2915,11 +2978,12 @@ def gemma_trace(traces, cfg, seed: int):
     return trace
 
 
-def profile_prefill(torch, model_lib, params, cfg, req) -> dict:
+def profile_prefill(torch, model_lib, params, cfg, req,
+                    router_bias=None) -> dict:
     """One one-shot prefill of ``req`` on the kernel backend under
     ``torch.profiler`` (another in the warm-up step, each into a fresh dense
-    cache): wall and device ms, the device's idle share, flash's device ms
-    and calls, the top device rows."""
+    cache; an MoE stack's ``router_bias``): wall and device ms, the device's
+    idle share, flash's device ms and calls, the top device rows."""
     prompts = req.prompts("cuda")
     caches = [model_lib.init_cache(cfg, 1, len(req.tokens), "cuda")
               for _ in range(2)]
@@ -2927,7 +2991,7 @@ def profile_prefill(torch, model_lib, params, cfg, req) -> dict:
     def once(cache):
         with torch.no_grad():
             model_lib.prefill(params, cfg, prompts, cache,
-                              attn_backend="kernel")
+                              attn_backend="kernel", router_bias=router_bias)
 
     wall_ms, rows = device_rows(torch, lambda: once(caches[0]),
                                 lambda: once(caches[1]))
@@ -3012,6 +3076,140 @@ def gemma_phase(torch, configs, eng_mod, traces, model_lib, api, seed: int,
                                             GEMMA_BF16_SLACK)
     del params, bf16
     torch.cuda.empty_cache()
+    rep["phase_s"] = time.perf_counter() - t0
+    return rep
+
+
+# ---------------------------------------------------------------------------
+# phase 13: kimi-k2 at its full published width, one layer
+# ---------------------------------------------------------------------------
+KIMI_ARCH = "kimi-k2-1t-a32b"
+
+
+def kimi_phase(torch, configs, eng_mod, traces, model_lib, api, moe_mod,
+               router, seed: int, counters: dict, kernel_paths: dict) -> dict:
+    """Phase 13: kimi-k2 at its published width cut to ``KIMI_LAYERS``
+    (GQA 64 / 8 at head dim 112, 384 experts top-8, expert d_ff 2048,
+    vocab 163,840, immune router, zero router bias), bf16, ``--seed``
+    weights, serves ``gemma_trace`` on phase 3's engine config on the kernel
+    and the torch backends. Checks: every request finishes with its budget;
+    the kernel run launches flash once a prefill, paged decode once a tick
+    and the grouped matmul 3 x (ticks + prefills) a layer, every call on
+    ``mma`` (the D = 112 tensor-core bodies), the torch run nothing. Then
+    phase 6's MoE rule: the same weights built afresh in fp32 from the same
+    seed (the bf16 ones are these rounded: ``layers._normal`` draws in fp32)
+    served on both backends agree within ``FP32_TOL`` (the kernel run on the
+    CUDA-core bodies), and the bf16 kernel run is within ``BF16_TOL`` of the
+    fp32 torch run or no farther from it than ``MOE_BF16_SLACK`` x the bf16
+    torch run. Profiled windows of ten decode ticks (all eight slots busy)
+    and of one 1,000-token prefill. Peak memory of every build and run."""
+    t0 = time.perf_counter()
+    gc.collect()                         # earlier phases' engines, cycles
+    torch.cuda.empty_cache()             # and all: the fp32 model needs 73 GB
+    resident = torch.cuda.memory_allocated() / 1e9
+    cfg = dataclasses.replace(configs.get_config(KIMI_ARCH),
+                              num_layers=KIMI_LAYERS)
+    bias = torch.zeros((cfg.num_layers, cfg.num_experts), device="cuda")
+
+    def build(c):
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        p = model_lib.init_params(
+            c, torch.Generator(device="cuda").manual_seed(seed),
+            device="cuda")
+        torch.cuda.synchronize()
+        return p, {"init_s": time.perf_counter() - t1, "init_peak_mem_gb":
+                   torch.cuda.max_memory_allocated() / 1e9}
+
+    params, built = build(cfg)
+    rep = {"params_b": model_lib.param_count(params) / 1e9,
+           "active_params_b": model_lib.active_param_count(params, cfg) / 1e9,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "head_dim": cfg.head_dim, "experts": cfg.num_experts,
+           "top_k": cfg.experts_per_token, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "router_mode": cfg.router_mode,
+           "dtype": cfg.dtype, "resident_gb_at_start": resident,
+           "bf16_build": built}
+    bodies = main_bodies(torch, kernel_paths, cfg)
+    check(set(bodies.values()) == {"mma"},
+          f"{KIMI_ARCH}: kernel_path predicts {bodies} at head dim "
+          f"{cfg.head_dim}, experts {cfg.d_model} x {cfg.d_ff}; its bf16 "
+          f"calls must take the tensor-core bodies")
+    bf16 = {}
+    for backend in ("kernel", "torch"):
+        with MoEStatsRecorder(moe_mod) as rec:
+            eng, stats, wall, n, peak = family_serve(
+                torch, eng_mod, params, cfg, gemma_trace(traces, cfg, seed),
+                backend, counters, engine_config(eng_mod, backend), bias)
+        want = family_launches(cfg, stats) if backend == "kernel" \
+            else dict.fromkeys(counters, 0)
+        check(n == want, f"{KIMI_ARCH} {backend} launches {n} != {want}")
+        paths = check_bodies(counters, n, f"{KIMI_ARCH} {backend}",
+                             bodies) if backend == "kernel" else None
+        bf16[backend] = eng.completed
+        rep[backend] = {**run_summary(stats, wall),
+                        "prefills": stats["prefills"], "launches": n,
+                        "paths": paths, "peak_mem_gb": peak,
+                        "routing": rec.summary(torch, router)}
+        del eng
+        torch.cuda.empty_cache()
+    trace = gemma_trace(traces, cfg, seed)
+    rep["profile"] = profile_decode(
+        torch, eng_mod, params, cfg, trace,
+        engine_config(eng_mod, "kernel", capture_logits=False),
+        router_bias=bias)
+    torch.cuda.empty_cache()
+    rep["profile_prefill"] = profile_prefill(
+        torch, model_lib, params, cfg, max(trace, key=lambda r: len(r.tokens)),
+        bias)
+    del params
+    gc.collect()                         # the engines' cycles hold the weights
+    torch.cuda.empty_cache()
+
+    # the same weights in fp32, built afresh (converting the bf16 tree in
+    # place would peak near 84 GB beside a 22.5 GB fp32 expert leaf)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32, rep["fp32_build"] = build(cfg32)
+    exact = {}
+    for backend in ("kernel", "torch"):
+        eng, stats, wall, n, peak = family_serve(
+            torch, eng_mod, params32, cfg32, gemma_trace(traces, cfg32, seed),
+            backend, counters, engine_config(eng_mod, backend), bias)
+        want = family_launches(cfg32, stats) if backend == "kernel" \
+            else dict.fromkeys(counters, 0)
+        check(n == want, f"{KIMI_ARCH} fp32 {backend} launches {n} != {want}")
+        if backend == "kernel":
+            check_bodies(counters, n, f"{KIMI_ARCH} fp32 kernel",
+                         dict.fromkeys(bodies, "cuda_core"))
+        exact[backend] = eng.completed
+        rep[f"fp32_{backend}"] = {"wall_s": wall, "launches": n,
+                                  "peak_mem_gb": peak}
+        del eng
+    del params32
+    torch.cuda.empty_cache()
+    agree32 = agreement(torch, model_lib, api, exact["kernel"],
+                        exact["torch"], *FP32_TOL)
+    check(not agree32["violations"], f"{KIMI_ARCH} kernel and torch runs "
+          f"disagree in fp32: {agree32['first_violations']}")
+    vs_exact = {name: agreement(torch, model_lib, api, bf16[name],
+                                exact["torch"], *BF16_TOL)
+                for name in ("kernel", "torch")}
+    ratio = {name: r["max_diff_over_tol"] for name, r in vs_exact.items()}
+    check(ratio["kernel"] <= max(1.0, MOE_BF16_SLACK * ratio["torch"]),
+          f"{KIMI_ARCH} bf16 kernel run is farther from fp32 arithmetic than "
+          f"{MOE_BF16_SLACK} x the torch run: {ratio}")
+    agree = agreement(torch, model_lib, api, bf16["kernel"], bf16["torch"],
+                      *BF16_TOL)
+    rep["agreement_fp32"] = {**{k: agree32[k] for k in (
+        "max_logits_diff", "max_diff_over_tol", "diverged", "violations")},
+        "rtol": FP32_TOL[0], "atol": FP32_TOL[1]}
+    rep["agreement_bf16"] = {k: agree[k] for k in (
+        "max_logits_diff", "max_diff_over_tol", "diverged", "violations")}
+    rep["bf16_vs_fp32"] = {name: {k: r[k] for k in (
+        "max_logits_diff", "max_diff_over_tol", "violations")}
+        for name, r in vs_exact.items()}
+    rep["bf16_slack"] = MOE_BF16_SLACK
     rep["phase_s"] = time.perf_counter() - t0
     return rep
 
@@ -3110,6 +3308,14 @@ def main() -> int:
     flash256_t["gemma"] = time_flash(torch, gen, flash_attention,
                                      attention_ref, h=16, hk=16, d=256,
                                      lengths=(1000,))
+    # the head dim 112 on phase 13's path: kimi-k2's decode (64 / 8 heads),
+    # verify at its heads, flash at its 1,000-token prefill beside SDPA
+    paged112_t = time_paged(torch, gen, paged_attention, paged_attention_ref,
+                            **KIMI_DECODE)
+    verify112_t = time_verify(torch, gen, paged_attention_verify,
+                              paged_attention_verify_ref, **KIMI_VERIFY)
+    flash112_t = time_flash(torch, gen, flash_attention, attention_ref, h=64,
+                            hk=8, d=112, lengths=(1000,))
     gmm_t = time_gmm(torch, gen, moe_gmm, gmm_ref)
     print("kernel timing shapes: " + json.dumps(
         {"paged_attention": paged_t["shape"],
@@ -3121,14 +3327,24 @@ def main() -> int:
          "paged_attention_verify_d256": verify256_t["shape"],
          "flash_attention_d256": [flash256_t["shape"],
                                   flash256_t["gemma"]["shape"]],
-         "moe_gmm": [gmm_t["shape"], gmm_t["prefill"]["shape"]]}))
+         "paged_attention_d112": paged112_t["shape"],
+         "paged_attention_verify_d112": verify112_t["shape"],
+         "flash_attention_d112": flash112_t["shape"],
+         "moe_gmm": [gmm_t["shape"]] + [gmm_t[k]["shape"] for k in (
+             "prefill", "kimi", "kimi_prefill")]}))
     print("paged kernels beside SDPA on the same live K / V, gathered and "
           "padded beforehand (not the same function): " + json.dumps(
               {"paged_attention": {"device_ms": paged_t["device_ms"],
                                    "dense_sdpa": paged_t["dense_sdpa"]},
                "paged_attention_verify": {
                    "device_ms": verify_t["device_ms"],
-                   "dense_sdpa": verify_t["dense_sdpa"]}}))
+                   "dense_sdpa": verify_t["dense_sdpa"]},
+               "paged_attention_d112": {
+                   "device_ms": paged112_t["device_ms"],
+                   "dense_sdpa": paged112_t["dense_sdpa"]},
+               "paged_attention_verify_d112": {
+                   "device_ms": verify112_t["device_ms"],
+                   "dense_sdpa": verify112_t["dense_sdpa"]}}))
 
     phase_start["3"] = time.perf_counter()
     # -- phase 3: the engine on smollm-360m -----------------------------------
@@ -3299,26 +3515,31 @@ def main() -> int:
     phase12 = gemma_rep["kernel"]["launches"]
     print(f"{GEMMA_ARCH}: " + json.dumps(gemma_rep))
 
+    phase_start["13"] = time.perf_counter()
+    # -- phase 13: kimi-k2 at its full published width, one layer ------------
+    kimi_rep = kimi_phase(torch, configs, eng_mod, traces, model_lib, api,
+                          moe_mod, router, args.seed, counters, kernel_paths)
+    phase13 = kimi_rep["kernel"]["launches"]
+    phase13_paths = kimi_rep["kernel"]["paths"]
+    print(f"{KIMI_ARCH}: " + json.dumps(kimi_rep))
+
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:161",
          "launches": paged_n, "paths": engine_paths["paged_attention"],
-         **{k: paged_t[k] for k in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "device_ms")},
+         **{k: paged_t[k] for k in TIMED},
          "head_dims": list(paged_pkg_dims),
-         "d256": {k: paged256_t[k] for k in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "device_ms")},
-         "d256_gemma": {k: paged256_t["gemma"][k] for k in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "device_ms")},
+         "d256": {k: paged256_t[k] for k in TIMED},
+         "d256_gemma": {k: paged256_t["gemma"][k] for k in TIMED},
          "phase8_launches": {a: n["paged_attention"]
                              for a, n in phase8.items()},
          "phase9_launches": phase9["paged_attention"],
          "phase12_launches": phase12["paged_attention"],
-         "phase12_paths": gemma_rep["kernel"]["paths"]["paged_attention"]},
+         "phase12_paths": gemma_rep["kernel"]["paths"]["paged_attention"],
+         "d112": {k: paged112_t[k] for k in TIMED},
+         "phase13_launches": phase13["paged_attention"],
+         "phase13_paths": phase13_paths["paged_attention"]},
         {"name": "paged_attention_verify", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:118",
@@ -3328,43 +3549,38 @@ def main() -> int:
          "phase8_launches": {a: n["paged_attention_verify"]
                              for a, n in phase8.items()},
          "phase12_launches": phase12["paged_attention_verify"],
-         **{k: verify_t[k] for k in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "device_ms")},
-         "d256": {k: verify256_t[k] for k in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "device_ms")}},
+         "phase13_launches": phase13["paged_attention_verify"],
+         "phase13_paths": phase13_paths["paged_attention_verify"],
+         "d112": {k: verify112_t[k] for k in TIMED},
+         **{k: verify_t[k] for k in TIMED},
+         "d256": {k: verify256_t[k] for k in TIMED}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
-         "launches": flash_n, "paths": flash_paths, **{k: flash_t[k] for k in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "device_ms", "library_device_ms")},
-         "s383": {k: flash_t["s383"][k] for k in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "device_ms", "library_device_ms")},
+         "launches": flash_n, "paths": flash_paths,
+         **{k: flash_t[k] for k in LIB_TIMED},
+         "s383": {k: flash_t["s383"][k] for k in LIB_TIMED},
          "head_dims": list(flash_pkg_dims),
-         "d256": {k: flash256_t[k] for k in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "device_ms", "library_device_ms")},
-         "d256_gemma": {k: flash256_t["gemma"][k] for k in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "device_ms", "library_device_ms")},
+         "d256": {k: flash256_t[k] for k in LIB_TIMED},
+         "d256_gemma": {k: flash256_t["gemma"][k] for k in LIB_TIMED},
          "phase8_launches": {a: n["flash_attention"]
                              for a, n in phase8.items()},
          "phase9_launches": phase9["flash_attention"],
          "phase12_launches": phase12["flash_attention"],
-         "phase12_paths": gemma_rep["kernel"]["paths"]["flash_attention"]},
+         "phase12_paths": gemma_rep["kernel"]["paths"]["flash_attention"],
+         "d112": {k: flash112_t[k] for k in LIB_TIMED},
+         "phase13_launches": phase13["flash_attention"],
+         "phase13_paths": phase13_paths["flash_attention"]},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
          "replaces": "src/repro/kernels/moe_gmm/kernel.py:45",
          "launches": gmm_n, "paths": moe_rep["kernel"]["paths"]["moe_gmm"],
-         **{k: gmm_t[k] for k in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "device_ms", "library_device_ms")},
-         "prefill": {k: gmm_t["prefill"][k] for k in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "device_ms", "library_device_ms")}},
+         **{k: gmm_t[k] for k in LIB_TIMED},
+         "prefill": {k: gmm_t["prefill"][k] for k in LIB_TIMED},
+         "kimi": {k: gmm_t["kimi"][k] for k in LIB_TIMED},
+         "kimi_prefill": {k: gmm_t["kimi_prefill"][k] for k in LIB_TIMED},
+         "phase13_launches": phase13["moe_gmm"],
+         "phase13_paths": phase13_paths["moe_gmm"]},
         {"name": "grid_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/grid_step.cu",
          "replaces": "src/repro/kernels/grid_step/kernel.py:59", **grid_k},

@@ -30,9 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # The head dims of the bf16 tensor-core bodies of paged_attention.cu and
 # flash_attention.cu (csrc/tensor_core.cuh:mma_dim makes the same choice;
-# D = 112 stays on the CUDA-core bodies: 14 chunks a row do not fit the
-# swizzle)
-MMA_HEAD_DIMS = (16, 32, 64, 128, 256)
+# at D = 112 each row's 14 chunks lie in a 16-chunk shared slot,
+# tensor_core.cuh:slot_chunks)
+MMA_HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -19,7 +19,10 @@
 //   heaviest causal block's serial chain is half its tiles. K / V slots of
 //   two tiles arrive by 16-byte cp.async in a double-buffered ring of
 //   XOR-swizzled shared tiles (ldmatrix without bank conflicts). Up to D =
-//   128 a tile is 64 rows and the Q fragments stay in registers; at D = 256
+//   128 a tile is 64 rows and the Q fragments stay in registers; at D = 112
+//   (kimi-k2) each row lies in a 16-chunk slot of which cp.async fills the
+//   14 live chunks (tensor_core.cuh:slot_chunks), so the shared memory and
+//   tiles are D = 128's and the loops run 7 k steps and 14 n8 tiles; at D = 256
 //   (gemma-7b, paligemma-3b) a tile is 32 rows, so that Q and the ring take
 //   160 KB of the 227 KB a block may have (64-row tiles would take 288 KB),
 //   and the Q fragments are re-read by ldmatrix at each k step (held, they
@@ -36,12 +39,14 @@
 //   fragments (64 KB per q block and KV tile), where wgmma would read them
 //   once per warpgroup. At D = 256 that traffic (with the Q re-reads, 40 KB
 //   a warp for each 32-row tile's 128 mma) and the whole K / V prefix
-//   copied into every q block's CTA bound the body, one CTA an SM.
+//   copied into every q block's CTA bound the body, one CTA an SM. Under
+//   GQA each q head's CTA copies its kv head's K / V again (kimi-k2's 64 /
+//   8 heads at D = 112: eight copies of each tile, where one CTA over the
+//   group's eight q heads would need one).
 // * fp32 ("cuda_core"): the first version on CUDA cores in fp32, exact to
 //   summation order against the plain version (tensor cores would need
 //   TF32, three decimal digits). bf16 whose pointers are not 16-byte
-//   aligned (cp.async's unit) takes it too, and bf16 at the head dim 112
-//   (tensor_core.cuh:mma_dim). Two threads per q row.
+//   aligned (cp.async's unit) takes it too. Two threads per q row.
 //
 // Layouts: q (B, H, S, D); k, v (B, Hkv, S, D); out (B, H, S, D).
 #include <cuda_runtime.h>
@@ -186,19 +191,21 @@ __host__ __device__ constexpr bool hold_q() { return D <= 128; }
 
 using namespace repro_tc;
 
-// Copy rows [r0, r0 + ROWS) of a (s, D) bf16 matrix into a swizzled ROWS x D
-// tile by 16-byte cp.async; rows at or past s are zero-filled (not read).
+// Copy rows [r0, r0 + ROWS) of a (s, D) bf16 matrix into a swizzled tile of
+// ROWS slots (slot_chunks(D / 8) chunks each, only the D / 8 live ones
+// written) by 16-byte cp.async; rows at or past s are zero-filled (not read).
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(uint4* dst,
                                           const __nv_bfloat16* src, int r0,
                                           int s, int tid) {
   constexpr int CPR = D / 8;
+  constexpr int SC = slot_chunks(CPR);
 #pragma unroll
   for (int i = tid; i < ROWS * CPR; i += kMmaThreads) {
     const int row = i / CPR, ch = i % CPR;
     const bool ok = r0 + row < s;
     const __nv_bfloat16* g = ok ? src + (long long)(r0 + row) * D + ch * 8 : src;
-    cp_async16(smem_u32(dst + swz<CPR>(row, ch)), g, ok ? 16 : 0);
+    cp_async16(smem_u32(dst + swz<SC>(row, ch)), g, ok ? 16 : 0);
   }
 }
 
@@ -214,11 +221,11 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ out, int h, int hkv, int s,
                  int causal, float scale_log2) {
-  constexpr int CPR = D / 8;            // 16-byte chunks per row
+  constexpr int SC = slot_chunks(D / 8);  // 16-byte chunks per shared row
   constexpr int KVR = kv_rows<D>();     // KV rows of one group's tile
   constexpr int KS = kv_step<D>();      // KV rows of a ring slot
-  constexpr int QT = kBlock * CPR;      // 16-byte units of the Q tile
-  constexpr int KVT = KS * CPR;         // 16-byte units of a K or V ring slot
+  constexpr int QT = kBlock * SC;       // 16-byte units of the Q tile
+  constexpr int KVT = KS * SC;          // 16-byte units of a K or V ring slot
   constexpr int KD = D / 16;            // k steps over D (S = Q K^T)
   constexpr int ND = D / 8;             // 8-wide output column tiles
   constexpr int NK = KVR / 8;           // 8-wide score column tiles
@@ -281,7 +288,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if constexpr (HQ) {
       if (j == 0) {
 #pragma unroll
-        for (int kk = 0; kk < KD; ++kk) ldsm_a<CPR>(qs, rw * 16, kk, lane, qf[kk]);
+        for (int kk = 0; kk < KD; ++kk) ldsm_a<SC>(qs, rw * 16, kk, lane, qf[kk]);
       }
     }
     const int tile = j * kGroups + grp;   // this group's KV tile
@@ -300,12 +307,12 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
       if constexpr (HQ) {
         qa[0] = qf[kk][0]; qa[1] = qf[kk][1]; qa[2] = qf[kk][2]; qa[3] = qf[kk][3];
       } else {
-        ldsm_a<CPR>(qs, rw * 16, kk, lane, qa);
+        ldsm_a<SC>(qs, rw * 16, kk, lane, qa);
       }
 #pragma unroll
       for (int np = 0; np < NK / 2; ++np) {
         uint32_t b0, b1, b2, b3;
-        ldsm_x4(smem_u32(kt + swz<CPR>(r_kv + np * 16 + (lane & 7) + (lane >> 4) * 8,
+        ldsm_x4(smem_u32(kt + swz<SC>(r_kv + np * 16 + (lane & 7) + (lane >> 4) * 8,
                                        kk * 2 + ((lane >> 3) & 1))),
                 b0, b1, b2, b3);
         mma_bf16(sc[2 * np], qa, b0, b1);
@@ -378,7 +385,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int dp = 0; dp < ND / 2; ++dp) {
         uint32_t b0, b1, b2, b3;
-        ldsm_x4_trans(smem_u32(vt + swz<CPR>(r_kv + kv * 16 + (lane & 7) +
+        ldsm_x4_trans(smem_u32(vt + swz<SC>(r_kv + kv * 16 + (lane & 7) +
                                                  ((lane >> 3) & 1) * 8,
                                              dp * 2 + (lane >> 4))),
                       b0, b1, b2, b3);
@@ -462,8 +469,8 @@ int launch_cuda_core(const void* q, const void* k, const void* v, void* out,
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* out, int b,
                int h, int hkv, int s, int causal, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(uint4) * (kBlock + 2 * kStages * kv_step<D>()) * (D / 8);
+  const size_t smem = sizeof(uint4) * (kBlock + 2 * kStages * kv_step<D>()) *
+                      slot_chunks(D / 8);
   cudaError_t err = cudaFuncSetAttribute(
       flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -506,8 +513,8 @@ int launch_d(int path, const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16; d in {16, 32, 64, 112, 128, 256}. Writes
 // the body it takes to *path: 1 ("mma") for bf16 with 16-byte-aligned
-// pointers (what cp.async needs) at d in {16, 32, 64, 128, 256}, else 0
-// ("cuda_core"). Returns cudaGetLastError().
+// pointers (what cp.async needs), else 0 ("cuda_core"). Returns
+// cudaGetLastError().
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int b, int h,
                                      int hkv, int s, int d, int causal,

@@ -62,14 +62,17 @@
 //     parts, hi + lo, so it keeps ~16 bits, close to the fp32 P of the TPU
 //     kernels (rounding P to bf16 once, as flash does, moved the MoE spec
 //     run's verify rows off its decode rows). Up to D = 128 the Q fragments
-//     stay in registers; at D = 256 (gemma-7b, paligemma-3b) they are
+//     stay in registers; at D = 112 (kimi-k2) each K / V / Q row lies in a
+//     16-chunk slot of which cp.async fills the 14 live chunks
+//     (tensor_core.cuh:slot_chunks: the D = 128 ring, 14% of it padding),
+//     and the loops run 7 k steps and 14 n8 tiles; at D = 256 (gemma-7b,
+//     paligemma-3b) they are
 //     re-read by ldmatrix at each k step (held, they would take 64
 //     registers beside the output accumulator's 128), and the three-stage
 //     ring of 64-token tiles takes 192 KB, the Q tile 8 KB and the table at
 //     most 2 KB: one CTA an SM, which a kernel bound by bytes can afford
 //     (each CTA keeps two 64 KB tiles in flight).
-//   - "cuda_core" (fp32, bf16 that is not 16-byte aligned, and bf16 at the
-//     head dim 112, which the mma body does not take): eight
+//   - "cuda_core" (fp32, and bf16 that is not 16-byte aligned): eight
 //     warps, 8 tokens of a tile each (four warps of 16 spent ~2.4 us a tile
 //     on their serial instruction chains); the 8 rows of a row block in
 //     registers (rows past the kv head's skipped); a K row of CPR 16-byte
@@ -148,16 +151,12 @@ __host__ __device__ constexpr int cc_warps() {
              : 8;
 }
 
-// Index, in 16-byte units, of chunk `ch` of ring row `row`: the XOR swizzle
-// of tensor_core.cuh where it keeps a chunk in its row (CPR a multiple of 8,
-// or 1, 2, 4), else row-major (CPR = 14, 28 at D = 112).
+// Index, in 16-byte units, of chunk `ch` of ring row `row` of CPR live
+// chunks: the XOR swizzle of tensor_core.cuh over rows of slot_chunks(CPR)
+// chunks (CPR = 14 and 28 at D = 112 lie in 16- and 32-chunk slots).
 template <int CPR>
 __device__ __forceinline__ int ring_at(int row, int ch) {
-  if constexpr (CPR % 8 == 0 || 8 % CPR == 0) {
-    return swz<CPR>(row, ch);
-  } else {
-    return row * CPR + ch;
-  }
+  return swz<slot_chunks(CPR)>(row, ch);
 }
 
 struct Params {
@@ -354,11 +353,13 @@ __device__ __forceinline__ void combine_warps(const Params& p, const Work& w,
   }
 }
 
-// Shared memory of one CTA: the ring, then (mma) the Q tile, then the
-// split's table entries. The warps' states reuse the ring at the end.
+// Shared memory of one CTA: the ring (TILE rows of K and of V a stage, each
+// row in a slot of slot_chunks 16-byte chunks), then (mma) the Q tile, then
+// the split's table entries. The warps' states reuse the ring at the end.
 template <typename T, int D, int TILE>
 __host__ __device__ constexpr size_t ring_bytes() {
-  return (size_t)kStages * 2 * TILE * D * sizeof(T);
+  return (size_t)kStages * 2 * TILE * slot_chunks(D * (int)sizeof(T) / 16) *
+         16;
 }
 
 // ---------------------------------------------------------------------------
@@ -380,7 +381,7 @@ __device__ __forceinline__ void cuda_core_body(const Params& p) {
   constexpr int PASSES = WT / TPP;
   // passes one softmax update covers (PB x RB scores in registers)
   constexpr int PB = PASSES < 4 ? PASSES : 4;
-  constexpr int KVT = TILE * CPR;                // chunks of a K or V stage
+  constexpr int KVT = TILE * slot_chunks(CPR);   // chunks of a K or V stage
   static_assert(CPR <= 32 || CPR % 32 == 0, "row of chunks over a warp");
   const Work w = work_of(p, RB);
   if (p.nsplit > 1 && w.ntok == 0) {             // no live position here
@@ -553,8 +554,9 @@ __device__ __forceinline__ void cuda_core_body(const Params& p) {
 // ---------------------------------------------------------------------------
 template <int D>
 __device__ __forceinline__ void mma_body(const Params& p) {
-  constexpr int CPR = D / 8;
-  constexpr int KVT = kTile * CPR;
+  constexpr int CPR = D / 8;          // live 16-byte chunks a row
+  constexpr int SC = slot_chunks(CPR);  // chunks of its shared slot
+  constexpr int KVT = kTile * SC;
   constexpr int KD = D / 16;          // k steps of S = Q K^T
   constexpr int ND = D / 8;           // 8-wide output column tiles
   constexpr bool HQ = D <= 128;       // Q fragments held in registers
@@ -569,8 +571,8 @@ __device__ __forceinline__ void mma_body(const Params& p) {
 
   extern __shared__ uint4 smem4[];
   uint4* ring = smem4;
-  uint4* qs = smem4 + kStages * 2 * KVT;               // 16 x D
-  int* pages_s = reinterpret_cast<int*>(qs + kMmaRows * CPR);
+  uint4* qs = smem4 + kStages * 2 * KVT;               // 16 slots
+  int* pages_s = reinterpret_cast<int*>(qs + kMmaRows * SC);
 
   // the Q tile: rows of this block, zero past the kv head's rows
   const bf* q = static_cast<const bf*>(p.q);
@@ -579,7 +581,7 @@ __device__ __forceinline__ void mma_body(const Params& p) {
     const int row = i / CPR, ch = i % CPR;
     const bool ok = r0 + row < p.rows;
     const bf* src = ok ? q + row_off(p, w.b, w.h, r0 + row, D) + ch * 8 : q;
-    cp_async16(smem_u32(qs + swz<CPR>(row, ch)), src, ok ? 16 : 0);
+    cp_async16(smem_u32(qs + swz<SC>(row, ch)), src, ok ? 16 : 0);
   }
   stage_table<kThreads>(p, w, pages_s);
   const int lim0 = min(row_limit(p, w.first, r0 + g), w.s_end - 1);
@@ -615,7 +617,7 @@ __device__ __forceinline__ void mma_body(const Params& p) {
     if constexpr (HQ) {
       if (j == 0) {
 #pragma unroll
-        for (int kk = 0; kk < KD; ++kk) ldsm_a<CPR>(qs, 0, kk, lane, qf[kk]);
+        for (int kk = 0; kk < KD; ++kk) ldsm_a<SC>(qs, 0, kk, lane, qf[kk]);
       }
     }
     const int rel0 = j * kTile + warp * kWarpTokens;   // this warp's 16 tokens
@@ -633,9 +635,9 @@ __device__ __forceinline__ void mma_body(const Params& p) {
       if constexpr (HQ) {
         qa[0] = qf[kk][0]; qa[1] = qf[kk][1]; qa[2] = qf[kk][2]; qa[3] = qf[kk][3];
       } else {
-        ldsm_a<CPR>(qs, 0, kk, lane, qa);
+        ldsm_a<SC>(qs, 0, kk, lane, qa);
       }
-      ldsm_x4(smem_u32(kt + swz<CPR>(r_kv + (lane & 7) + (lane >> 4) * 8,
+      ldsm_x4(smem_u32(kt + swz<SC>(r_kv + (lane & 7) + (lane >> 4) * 8,
                                      kk * 2 + ((lane >> 3) & 1))),
               b0, b1, b2, b3);
       mma_bf16(sc[0], qa, b0, b1);
@@ -695,7 +697,7 @@ __device__ __forceinline__ void mma_body(const Params& p) {
 #pragma unroll
     for (int dp = 0; dp < ND / 2; ++dp) {
       uint32_t b0, b1, b2, b3;
-      ldsm_x4_trans(smem_u32(vt + swz<CPR>(r_kv + (lane & 7) +
+      ldsm_x4_trans(smem_u32(vt + swz<SC>(r_kv + (lane & 7) +
                                                ((lane >> 3) & 1) * 8,
                                            dp * 2 + (lane >> 4))),
                     b0, b1, b2, b3);
@@ -842,7 +844,7 @@ int launch_d(int path, bool verify, Params p, cudaStream_t st) {
     if (path == 1) {
       p.nrb = (p.rows + kMmaRows - 1) / kMmaRows;
       const size_t smem = ring_bytes<__nv_bfloat16, D, kTile>() +
-                          kMmaRows * D * 2 + table;
+                          kMmaRows * slot_chunks(D / 8) * 16 + table;
       err = launch_split(
           verify ? paged_verify_mma_kernel<D> : paged_decode_mma_kernel<D>, p,
           kThreads, smem, st);
@@ -918,8 +920,8 @@ int dispatch(const void* q, const void* kp, const void* vp, const void* table,
 // nsplit and pages_per_split come from ops.py:split_rule; `partials` holds
 // B * Hkv * nsplit * R * (D + 2) floats (R = G, or Sq * G) when nsplit > 1,
 // else may be null. Writes the body it takes to *path: 1 ("mma") for bf16
-// with 16-byte-aligned pointers at d in {16, 32, 64, 128, 256}, else 0
-// ("cuda_core"). Returns cudaGetLastError() after its launches.
+// with 16-byte-aligned pointers, else 0 ("cuda_core"). Returns
+// cudaGetLastError() after its launches.
 extern "C" int repro_paged_attention(const void* q, const void* k_pages,
                                      const void* v_pages, const void* table,
                                      const void* lengths, void* out,

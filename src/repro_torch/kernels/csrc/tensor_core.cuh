@@ -97,15 +97,26 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// 16-byte chunks of the shared row (the "slot") that holds a row of `chunks`
+// live chunks: the row itself where swz keeps every chunk in its row (a
+// multiple of 8 chunks, or 1, 2, 4), else the next multiple of 8. D = 112 in
+// bf16 has 14 chunks a row: swz<14> would XOR chunks 8-13 into slots 14-15,
+// past the row's end, so each row takes a 16-chunk slot whose last two
+// chunks are never copied, read or written (the D = 128 tile, 14% of it
+// padding) and swz<16> keeps the ldmatrix rows free of bank conflicts.
+__host__ __device__ constexpr int slot_chunks(int chunks) {
+  return chunks % 8 == 0 || 8 % chunks == 0 ? chunks : (chunks + 7) / 8 * 8;
+}
+
 // The head dims of the tensor-core bodies of paged_attention.cu and
 // flash_attention.cu (kernels/_build.py:MMA_HEAD_DIMS). At 256 both bodies
 // re-read the Q fragments from shared memory at every k step (held, they
 // would take 64 registers beside the 128 of the output accumulator), and
-// flash takes 32-row K / V tiles so that its ring fits in shared memory.
-// 112 takes the CUDA-core bodies in bf16 too: 112 / 8 chunks a row do not
-// fit the swizzle.
+// flash takes 32-row K / V tiles so that its ring fits in shared memory. At
+// 112 (kimi-k2) the rows lie in 16-chunk slots (slot_chunks) and the loops
+// run its 7 k steps of QK^T and 14 n8 tiles of PV.
 __host__ __device__ constexpr bool mma_dim(int d) {
-  return d == 16 || d == 32 || d == 64 || d == 128 || d == 256;
+  return d == 16 || d == 32 || d == 64 || d == 112 || d == 128 || d == 256;
 }
 
 }  // namespace repro_tc

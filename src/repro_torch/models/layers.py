@@ -218,11 +218,13 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 def _normal(gen: Optional[torch.Generator], shape, std: float, dtype,
             device) -> torch.Tensor:
     """N(0, std^2) drawn in fp32 on the generator's device, then cast and
-    placed; ``gen=None`` leaves the tensor uninitialised (to be filled)."""
+    placed; ``gen=None`` leaves the tensor uninitialised (to be filled).
+    Scaled in place, so a leaf costs one fp32 draw beside the model, not
+    two (kimi-k2's 22.5 GB expert leaves: one layer in fp32 fits a card)."""
     if gen is None:
         return torch.empty(shape, dtype=dtype, device=device)
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device) * std
+                    device=gen.device).mul_(std)
     return w.to(device=device, dtype=dtype)
 
 

@@ -109,10 +109,12 @@ def _run_counted(fn, args, path):
                                        (torch.bfloat16, 5e-2)])
 def test_paged_kernel_matches_plain(card, b, h, hk, d, page, dtype, tol):
     """Within ``tol`` absolute and ``ROW_TOL`` by row; the launch counted
-    under the body ``kernel_path`` names."""
+    under the body ``kernel_path`` names: the tensor cores in bf16 at every
+    head dim (D = 112 too), CUDA cores in fp32."""
+    path = paged_pkg.kernel_path(dtype, head_dim=d)
+    assert path == ("mma" if dtype == torch.bfloat16 else "cuda_core")
     args = _paged_inputs(b + page, b, h, hk, d, page, 6, dtype, card)
-    out = _run_counted(paged_attention, args,
-                       paged_pkg.kernel_path(dtype, head_dim=d))
+    out = _run_counted(paged_attention, args, path)
     ref = paged_attention_ref(*args)
     assert (out.float() - ref.float()).abs().max().item() <= tol
     assert _row_rel_err(out, ref) <= ROW_TOL[dtype]
@@ -155,10 +157,12 @@ def _verify_inputs(seed, b, sq, h, hk, d, page, maxp, dtype, device,
                                        (torch.bfloat16, 5e-2)])
 def test_verify_kernel_matches_plain(card, b, h, hk, d, sq, dtype, tol):
     """Within ``tol`` absolute and ``ROW_TOL`` by row; the launch counted
-    under the body ``kernel_path`` names."""
+    under the body ``kernel_path`` names: the tensor cores in bf16 at every
+    head dim (D = 112 too), CUDA cores in fp32."""
+    path = paged_pkg.kernel_path(dtype, head_dim=d)
+    assert path == ("mma" if dtype == torch.bfloat16 else "cuda_core")
     args = _verify_inputs(b * 10 + sq, b, sq, h, hk, d, 16, 6, dtype, card)
-    out = _run_counted(paged_attention_verify, args,
-                       paged_pkg.kernel_path(dtype, head_dim=d))
+    out = _run_counted(paged_attention_verify, args, path)
     ref = paged_attention_verify_ref(*args)
     assert (out.float() - ref.float()).abs().max().item() <= tol
     assert _row_rel_err(out, ref) <= ROW_TOL[dtype]
@@ -296,6 +300,39 @@ def test_flash_kernel_gemma_7b_heads(card, s, causal, dtype, tol, row_tol):
                  row_tol)
 
 
+# kimi-k2's in-flight lengths in chip_smoke.py's phase 13 (its trace is
+# gemma-7b's: prompts 100 / 383 / 1,000 and 16 tokens of decode)
+KIMI_LENGTHS = [116, 399, 1016, 130, 391, 102, 403, 1016]
+
+
+@pytest.mark.parametrize("kernel", ["paged", "verify", "flash"])
+def test_kimi_k2_heads_take_the_mma_body(card, kernel):
+    """kimi-k2's 64 / 8 heads at D = 112 in bf16, at phase 13's shapes:
+    decode over its 96-page table at the trace's lengths, verify (Sq = 5)
+    from those positions, flash over a 1,000-token prompt. ``kernel_path``
+    names the tensor-core body, the launch is counted under it, and the
+    output holds the limits of the tests above."""
+    dtype, d = torch.bfloat16, 112
+    assert paged_pkg.kernel_path(dtype, d) == flash_pkg.kernel_path(
+        dtype, d) == "mma"
+    if kernel == "flash":
+        _check_flash(card, 1000 + d, 1, 64, 8, 1000, d, True, dtype, 5e-2,
+                     ROW_TOL[dtype])
+        return
+    if kernel == "paged":
+        fn, ref_fn = paged_attention, paged_attention_ref
+        args = _paged_inputs(d, 8, 64, 8, d, 16, 96, dtype, card,
+                             KIMI_LENGTHS)
+    else:
+        fn, ref_fn = paged_attention_verify, paged_attention_verify_ref
+        args = _verify_inputs(d, 8, 5, 64, 8, d, 16, 96, dtype, card,
+                              KIMI_LENGTHS)
+    out = _run_counted(fn, args, "mma")
+    ref = ref_fn(*args)
+    assert (out.float() - ref.float()).abs().max().item() <= PAGED_TOL[dtype]
+    assert _row_rel_err(out, ref) <= ROW_TOL[dtype]
+
+
 def _check_flash(card, seed, b, h, hk, s, d, causal, dtype, tol, row_tol):
     g = torch.Generator(device=card).manual_seed(seed)
     q = torch.randn(b, h, s, d, generator=g, device=card).to(dtype)
@@ -307,6 +344,7 @@ def _check_flash(card, seed, b, h, hk, s, d, causal, dtype, tol, row_tol):
     torch.cuda.synchronize()
     assert flash_attention.launches == n0 + 1
     path = flash_pkg.kernel_path(dtype, head_dim=d)
+    assert path == ("mma" if dtype == torch.bfloat16 else "cuda_core")
     assert flash_attention.launches_by_path[path] == p0[path] + 1
     ref = attention_ref(q, k, v, causal=causal)
     assert (out.float() - ref.float()).abs().max().item() <= tol

@@ -156,13 +156,14 @@ def test_engine_matches_oneshot_generate(pair):
 def test_mma_dim_is_the_build_gate():
     """``csrc/tensor_core.cuh:mma_dim``, which the C entry points read, and
     ``_build.MMA_HEAD_DIMS``, which the wrappers' ``kernel_path`` read, name
-    the same head dims; 256 is one of them and 112 is not."""
+    the same head dims; 256 and 112 are both among them."""
     src = (_build.CSRC / "tensor_core.cuh").read_text()
     body = re.search(r"constexpr bool mma_dim\(int d\) \{(.*?)\}", src,
                      re.S).group(1)
     dims = {int(x) for x in re.findall(r"d == (\d+)", body)}
     assert dims == set(_build.MMA_HEAD_DIMS)
-    assert 256 in dims and 112 not in dims
+    assert {112, 256} <= dims
     for pkg in (paged_pkg, flash_pkg):
-        assert pkg.kernel_path(torch.bfloat16, 256) == "mma"
-        assert pkg.kernel_path(torch.float32, 256) == "cuda_core"
+        for d in (112, 256):
+            assert pkg.kernel_path(torch.bfloat16, d) == "mma"
+            assert pkg.kernel_path(torch.float32, d) == "cuda_core"

@@ -13,7 +13,9 @@ process that imports the port from ``<root>/src`` (and builds its kernels
 under ``<root>/build``) and this checkout's ``chip_smoke.py``, and calls its
 ``check_paged``, ``check_verify``, ``check_flash``, ``check_gmm``,
 ``check_grid_step`` and the matching ``time_*`` on inputs drawn from
-``--seed``. A failed check is recorded in the run's ``failed`` list instead
+``--seed`` (the attention kernels also at kimi-k2's 64 / 8 heads and head
+dim 112, ``KIMI_DECODE``, ``KIMI_VERIFY`` and flash at S = 1000; the grouped
+matmul also at kimi-k2's expert widths). A failed check is recorded in the run's ``failed`` list instead
 of ending it, so a tree that breaks a check (an older body, a planted
 fault) still reports every reading. A tree whose wrappers predate the
 per-body counts has each launch counted under one body, ``"any"``; a tree
@@ -95,6 +97,12 @@ def one(root: str, seed: int) -> dict:
                         cs.verify_positions(
                             traces, configs.get_config("smollm-360m"), seed))
     ft = cs.time_flash(torch, gen, flash_attention, attention_ref)
+    pt112 = cs.time_paged(torch, gen, paged_attention, paged_attention_ref,
+                          **cs.KIMI_DECODE)
+    vt112 = cs.time_verify(torch, gen, paged_attention_verify,
+                           paged_attention_verify_ref, **cs.KIMI_VERIFY)
+    ft112 = cs.time_flash(torch, gen, flash_attention, attention_ref, h=64,
+                          hk=8, d=112, lengths=(1000,))
     gt = cs.time_gmm(torch, gen, moe_gmm, gmm_ref)
     grid_t = cs.time_grid_step(torch, gen, grid_step, planes, grid_step_ref)
     return {"root": root, "failed": failed, "paged_checks": paged,
@@ -104,8 +112,13 @@ def one(root: str, seed: int) -> dict:
             "paged_verify": {k: vt[k] for k in NO_LIB_TIMED},
             "flash_1000": {k: ft[k] for k in TIMED},
             "flash_383": {k: ft["s383"][k] for k in TIMED},
+            "paged_decode_d112": {k: pt112[k] for k in NO_LIB_TIMED},
+            "paged_verify_d112": {k: vt112[k] for k in NO_LIB_TIMED},
+            "flash_1000_d112": {k: ft112[k] for k in TIMED},
             "gmm_decode": {k: gt[k] for k in TIMED},
             "gmm_prefill": {k: gt["prefill"][k] for k in TIMED},
+            "gmm_kimi_decode": {k: gt["kimi"][k] for k in TIMED},
+            "gmm_kimi_prefill": {k: gt["kimi_prefill"][k] for k in TIMED},
             "grid_step": {shape: {k: t[k] for k in NO_LIB_TIMED}
                           for shape, t in grid_t.items()}}
 
