@@ -14,15 +14,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    first positions (page boundaries, rows past the table's capacity), plus
    MHA and MQA, and at Sq = 1 bitwise the decode kernel at lengths = pos + 1;
    both also at D = 256 (paligemma-3b's 8 / 1 heads and gemma-7b's 16 /
-   16) and at D = 112 (kimi-k2's 64 / 8, on "mma") (``PAGED_CASES``,
-   ``VERIFY_CASES``); decode also at phase 8's shapes, musicgen-medium's 24
-   / 24 heads at D = 64 over a 26-page table and paligemma-3b's over a
-   25-page one; flash attention at H=15, Hkv=5, D=64 for S in {1, 17, 64,
-   65, 128, 383, 1000}, at B=2 for D in {16, 32, 128}, S in {64, 65, 383},
-   at D = 256 (8 / 1 heads) and D = 112 (64 / 8) for S in {64, 65, 383,
-   1000}, at musicgen-medium's 24 / 24 heads for S in {100, 383} and at
-   gemma-7b's 16 / 16 heads (D = 256) for S in {65, 383}, causal
-   and not; the MoE grouped matmul at granite-moe-3b-a800m's widths (E, C, D, F)
+   16), at D = 112 (kimi-k2's 64 / 8, on "mma") and at qwen3-4b's decode
+   and spec shape (B = 8, GQA 32 / 8 at D = 128 over a 96-page table)
+   (``PAGED_CASES``, ``VERIFY_CASES``); decode also at phase 8's shapes,
+   musicgen-medium's 24 / 24 heads at D = 64 over a 26-page table and
+   paligemma-3b's over a 25-page one, and at minicpm-2b's (B = 8, 36 / 36
+   at D = 64, 96 pages); flash attention at H=15, Hkv=5, D=64 for S in {1,
+   17, 64, 65, 128, 383, 1000}, at B=2 for D in {16, 32, 128}, S in {64,
+   65, 383}, at D = 256 (8 / 1 heads) and D = 112 (64 / 8) for S in {64,
+   65, 383, 1000}, at musicgen-medium's 24 / 24 heads for S in {100, 383},
+   at gemma-7b's 16 / 16 heads (D = 256) for S in {65, 383}, at qwen3-4b's
+   32 / 8 heads (D = 128) for S in {65, 383, 1000} and at minicpm-2b's 36
+   / 36 for S = 1000, causal and not; the MoE grouped matmul at granite-moe-3b-a800m's widths (E, C, D, F)
    = (40, 64, 1536, 512), (40, 64, 512, 1536), (40, 320, 1536, 512), (40,
    252, 1536, 512), at (3, 37, 96, 80) and at kimi-k2's (D = 7168, F = 2048
    both ways at C = 4 and 28, over 8 experts), with seeded group sizes that
@@ -47,6 +50,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    paligemma's (Sq = 5 from those lengths), flash at S=1000 with 8 / 1 and
    16 / 16 heads beside SDPA; at D = 112 decode and verify at kimi-k2's
    64 / 8 heads over gemma-7b's lengths, flash at S = 1000 beside SDPA;
+   at D = 128 decode and verify (Sq = 5) at qwen3-4b's 32 / 8 heads over
+   the same lengths and table, flash at S = 1000 and 383; minicpm-2b's
+   decode (36 / 36, D = 64) and its flash at S = 1000;
    the grouped matmul at the decode tick's gate / up shape with one tick's
    group sizes and at a 1000-token prefill's (C = 252), and at kimi-k2's
    (384 experts, 7168 x 2048, C = 4 and 28)). No single PyTorch call
@@ -275,10 +281,45 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    ``torch.profiler`` windows of ten decode ticks and of one 1,000-token
    prefill.
 
-Phases 3-13 each set every launch count to 0 just before they drive their
-path and read the counts just after. Phases 3 and 12 and every phase-8
-model but recurrentgemma-9b run at full depth; phases 4-6, 9, 13 and
-recurrentgemma-9b at the depths above, so the whole run stays inside
+14. qwen3-4b at its full published config (36 layers, d_model 2560, GQA 32
+   / 8 at head_dim 128 with qk-norm, d_ff 9,728, vocab 151,936, rope theta
+   1e6, tied, bf16, 4.02 B parameters; random weights from ``--seed``):
+   (a) phase 12's 8 requests on phase 3's engine config on both backends,
+   flash 36 x prefills and paged decode 36 x decode ticks on "mma" (the
+   torch run nothing), logits by ``bf16_rule``; (b) four greedy requests
+   on the same weights made draft-friendly at depth 8, ``spec_decode=4``
+   and without: verify 36 x spec ticks on "mma", the streams by phase 3's
+   rule; (c) preemption by page exhaustion, the JAX package's bar
+   (``benchmarks/serve_engine.py`` ``run_preemption``) at full width: a
+   16-request ``contention_trace`` (``PREEMPT_TRACE``) on 8 slots, page
+   16, max_cache 1,536, chunked prefill ``PREEMPT_CHUNK`` and a pool of
+   ``PREEMPT_PAGES`` pages, under ``admission_mode`` "reserve" and
+   "preempt": every request with its budget, at least one preemption and
+   one replayed token, preempt's ``concurrency_hw`` above reserve's, the
+   schedule the CPU predicts (``PREEMPT_PLAN``), each preempted request's
+   stream held to its uninterrupted run (the full pool) by phase 3's bf16
+   rule; in fp32 (the same weights upcast, the CUDA-core bodies) the
+   preempt run up to the first completion of a request that replayed
+   tokens, its schedule so far bf16's, and the preempted requests done by
+   then token for token with their uninterrupted runs, logits within 1e-3;
+   concurrency, p50 / p99 in ticks, goodput, preemptions and replayed
+   tokens printed; (d) ``torch.profiler`` windows of ten decode ticks and
+   of a 1,000-token prefill, as in phase 12.
+15. minicpm-2b at its full published config (40 layers, d_model 2304, MHA
+   36 / 36 at head_dim 64, d_ff 5,760, vocab 122,753, tied, bf16, 2.72 B
+   parameters): (a) phase 12's 8 requests on both backends, flash 40 x
+   prefills and paged decode 40 x ticks on "mma", logits by ``bf16_rule``,
+   profiled windows as in phase 14; (b) three ``train_step`` calls at 4 x
+   128 under a WSD ``TrainConfig`` whose warmup, plateau and decay each
+   take a step, AdamW's moments in fp32 (``WSD_STEPS``): losses finite,
+   each step's learning rate the CPU's ``optimizer.schedule``, peak
+   memory; one smoke-size fp32 step on the
+   card and on the CPU under WSD, held as phase 10 (c) holds smollm-360m.
+
+Phases 3-15 each set every launch count to 0 just before they drive their
+path and read the counts just after. Phases 3, 12, 14 and 15 and every
+phase-8 model but recurrentgemma-9b run at full depth; phases 4-6, 9, 13
+and recurrentgemma-9b at the depths above, so the whole run stays inside
 1,200 s (phase 13 also so that its weights fit the card).
 
 The second-to-last lines are one JSON object ``{"kernels": [...]}`` and the
@@ -378,21 +419,24 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_rows(torch, warm, run, cpu: bool = True) -> tuple:
-    """``run()`` under ``torch.profiler`` (CUDA activity, and the host's
-    with ``cpu``), after ``warm()`` in the profiler's warm-up step; both
-    end in a sync. Returns (run's wall ms, [(device ms, launches, name)] of
-    the device rows with device time, largest first). On an H100 the
+def device_rows(torch, warm, run) -> tuple:
+    """``run()`` under ``torch.profiler``, after ``warm()`` in the
+    profiler's warm-up step; both end in a sync. It traces the card's
+    activity alone: only device rows are read, and tracing the host's
+    operators as well inflated a window's wall time (a qwen3-4b decode
+    tick 134.5 ms so traced, 97.6 not, in two calls on an NVIDIA H100 80GB
+    HBM3 at 700 W). Returns (run's wall
+    ms, [(device ms, launches, name)] of the device rows with device
+    time, largest first). On an H100 the
     profiler left launches unrecorded: the first ones of a session (a DFF
     window one grid-step call short), which the warm-up step now takes,
     and, late in a long process, some of a short window's (4 of 20, or all
     20), which ``device_ms`` detects and measures again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     done = []
-    with profile(activities=acts, schedule=schedule(wait=0, warmup=1,
-                                                    active=1),
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
                  on_trace_ready=lambda p: done.append(p.key_averages())) \
             as prof:
         warm()
@@ -403,8 +447,7 @@ def device_rows(torch, warm, run, cpu: bool = True) -> tuple:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         prof.step()
-    # device-side rows only: an operator's row repeats its kernels' time,
-    # and the step's own range spans the whole window
+    # device-side rows only: the step's own range spans the whole window
     rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
             for ev in done[0]
             if ev.device_type != DeviceType.CPU and ev.self_device_time_total
@@ -426,7 +469,7 @@ def device_ms(torch, fn, iters: int = 20):
             fn()
 
     for _ in range(3):
-        _, rows = device_rows(torch, calls, calls, cpu=False)
+        _, rows = device_rows(torch, calls, calls)
         if rows and all(n % iters == 0 for _, n, _ in rows):
             return sum(ms for ms, _, _ in rows) / iters
         print(f"device_ms: window of {iters} calls dropped, launches "
@@ -481,17 +524,23 @@ def paged_inputs(torch, gen, b, h, hk, d, page, maxp, dtype, lengths=None):
 
 # (B, H, Hkv, D, page, maxp): smollm-360m's width, MHA, MQA, then the wider
 # head dims of the served models: paligemma-3b (D = 256, MQA 8 / 1),
-# gemma-7b (D = 256, MHA 16 / 16) and kimi-k2 (D = 112, GQA 64 / 8); last,
+# gemma-7b (D = 256, MHA 16 / 16) and kimi-k2 (D = 112, GQA 64 / 8); then
 # phase 8's decode shapes: musicgen-medium (24 / 24 heads at D = 64, G = 1,
-# a 26-page table) and paligemma-3b (a 25-page table), each with the split
-# count ``split_rule`` gives the engine's calls
+# a 26-page table) and paligemma-3b (a 25-page table); last, the decode
+# shapes of phases 14 and 15: qwen3-4b (GQA 32 / 8 at D = 128) and
+# minicpm-2b (MHA 36 / 36 at D = 64), 8 slots over a 96-page table; each
+# with the split count ``split_rule`` gives the engine's calls
 PAGED_CASES = [(8, 15, 5, 64, 16, 96), (3, 4, 4, 64, 8, 4),
                (2, 8, 1, 128, 16, 3), (8, 8, 1, 256, 16, 32),
                (3, 16, 16, 256, 16, 24), (3, 64, 8, 112, 16, 24),
-               (8, 24, 24, 64, 16, 26), (8, 8, 1, 256, 16, 25)]
+               (8, 24, 24, 64, 16, 26), (8, 8, 1, 256, 16, 25),
+               (8, 32, 8, 128, 16, 96), (8, 36, 36, 64, 16, 96)]
+# the verify step also at qwen3-4b's spec shape in phase 14 (B = 8, 32 / 8
+# heads at D = 128, the 96-page table)
 VERIFY_CASES = [(8, 15, 5, 64, 16, 32), (3, 4, 4, 64, 8, 6),
                 (2, 8, 1, 128, 16, 4), (4, 8, 1, 256, 16, 24),
-                (2, 16, 16, 256, 16, 12), (2, 64, 8, 112, 16, 12)]
+                (2, 16, 16, 256, 16, 12), (2, 64, 8, 112, 16, 12),
+                (8, 32, 8, 128, 16, 96)]
 
 
 def check_paged(torch, gen, paged_attention, paged_attention_ref,
@@ -600,15 +649,19 @@ def check_verify(torch, gen, verify, verify_ref, paged_attention,
 # (B, H, Hkv, D, S): smollm-360m's width at the engine's prompt lengths
 # (both tile edges: 64, 65), then every other head dim at two sequences,
 # then paligemma-3b's D = 256 (8 / 1 heads) and kimi-k2's D = 112 (64 / 8),
-# then musicgen-medium's prefills in phase 8 (24 / 24 heads, G = 1) and
-# gemma-7b's in phase 12 (16 / 16 heads at D = 256; S = 1000 is timed)
+# then musicgen-medium's prefills in phase 8 (24 / 24 heads, G = 1),
+# gemma-7b's in phase 12 (16 / 16 heads at D = 256; S = 1000 is timed),
+# qwen3-4b's in phase 14 (GQA 32 / 8 at D = 128) and minicpm-2b's 1,000-token
+# prefill in phase 15 (36 / 36 heads at D = 64)
 FLASH_CASES = ([(1, 15, 5, 64, s) for s in (1, 17, 64, 65, 128, 383, 1000)]
                + [(2, 15, 5, d, s) for d in (16, 32, 128)
                   for s in (64, 65, 383)]
                + [(1, h, hk, d, s) for h, hk, d in ((8, 1, 256), (64, 8, 112))
                   for s in (64, 65, 383, 1000)]
                + [(1, 24, 24, 64, s) for s in (100, 383)]
-               + [(1, 16, 16, 256, s) for s in (65, 383)])
+               + [(1, 16, 16, 256, s) for s in (65, 383)]
+               + [(1, 32, 8, 128, s) for s in (65, 383, 1000)]
+               + [(1, 36, 36, 64, 1000)])
 
 
 def check_flash(torch, gen, flash_attention, attention_ref,
@@ -695,6 +748,18 @@ KIMI_DECODE = dict(h=64, hk=8, d=112, maxp=96,
 # verifies at D = 112: phase 13 does not speculate)
 KIMI_VERIFY = dict(h=64, hk=8, d=112, maxp=96,
                    positions=KIMI_DECODE["lengths"])
+# qwen3-4b's decode shape in phase 14: 8 slots, GQA 32 / 8 at D = 128 over
+# the same 1536-token block table and in-flight lengths (phase 14 serves
+# gemma-7b's trace); verify at its heads, Sq = 5 from those lengths (phase
+# 14's spec run verifies at this width)
+QWEN_DECODE = dict(h=32, hk=8, d=128, maxp=96,
+                   lengths=GEMMA_DECODE["lengths"])
+QWEN_VERIFY = dict(h=32, hk=8, d=128, maxp=96,
+                   positions=QWEN_DECODE["lengths"])
+# minicpm-2b's decode shape in phase 15: 8 slots, MHA 36 / 36 at D = 64,
+# the same table and lengths
+MINICPM_DECODE = dict(h=36, hk=36, d=64, maxp=96,
+                      lengths=GEMMA_DECODE["lengths"])
 
 
 def time_paged(torch, gen, paged_attention, paged_attention_ref, h=15, hk=5,
@@ -1179,9 +1244,10 @@ SPEC_K, SPEC_DEPTH = 4, 8
 # H100 80GB HBM3 at 700.00 W, and a host 1.6x slower was seen; with phase
 # 12, 966.7 s on a host where phase 7 ran 1.4x slower than before): these
 # earlier paths run fewer layers of their published configs, every width
-# unchanged. Phase 3 (the main path) and phase 12 run at full depth.
+# unchanged. Phases 3 (the main path), 12, 14 and 15 run at full depth, and
+# so do the other phase-8 families.
 SPEC_LAYERS = 16                          # phases 4-5, smollm-360m: 32
-MOE_LAYERS = 16                           # phase 6, granite-moe-3b-a800m: 32
+MOE_LAYERS = 16                           # phases 6, 10b, 11, granite: 32
 FAMILY_LAYERS = {"recurrentgemma-9b": 20}  # phase 8: 38 (6 groups + tail)
 FLEET_LAYERS = 16                         # phase 9, smollm-360m: 32
 # Phase 13, kimi-k2-1t-a32b: 1 of its 61 layers, every width published. One
@@ -2516,7 +2582,8 @@ def leaf_rel_err(torch, a, b) -> float:
     return float((a - b).abs().max() / a.abs().max().clamp(min=1e-30))
 
 
-def card_vs_cpu(torch, configs, arch: str, seed: int) -> dict:
+def card_vs_cpu(torch, configs, arch: str, seed: int,
+                schedule: str = "cosine") -> dict:
     """10c: one train step from one state on one batch, on the card and on
     the CPU, at the smoke size the CPU tests use (fp32, TF32 off): the loss,
     every gradient leaf, then the new state and the metrics."""
@@ -2526,7 +2593,7 @@ def card_vs_cpu(torch, configs, arch: str, seed: int) -> dict:
     from repro_torch.train import train_step as ts
     cfg = configs.get_config(arch).smoke()
     tcfg = TrainConfig(learning_rate=1e-2, warmup_steps=0, decay_steps=100,
-                       eps=TRAIN_PARITY_EPS)
+                       schedule=schedule, eps=TRAIN_PARITY_EPS)
     tree = ts.train_state_to_numpy(ts.init_train_state(
         torch.Generator().manual_seed(seed), cfg, tcfg, device="cpu"), cfg)
     states = {d: ts.train_state_from_numpy(tree, cfg, d)
@@ -2982,8 +3049,9 @@ def profile_prefill(torch, model_lib, params, cfg, req,
                     router_bias=None) -> dict:
     """One one-shot prefill of ``req`` on the kernel backend under
     ``torch.profiler`` (another in the warm-up step, each into a fresh dense
-    cache; an MoE stack's ``router_bias``): wall and device ms, the device's
-    idle share, flash's device ms and calls, the top device rows."""
+    cache; an MoE stack's ``router_bias``):
+    wall and device ms, the device's idle share, flash's device ms and
+    calls, the top device rows."""
     prompts = req.prompts("cuda")
     caches = [model_lib.init_cache(cfg, 1, len(req.tokens), "cuda")
               for _ in range(2)]
@@ -3004,6 +3072,61 @@ def profile_prefill(torch, model_lib, params, cfg, req,
             "flash_calls": sum(r[1] for r in flash),
             "top": [{"kernel": k[:80], "ms": ms, "calls": n}
                     for ms, n, k in rows[:8]]}
+
+
+def dense_profiles(torch, eng_mod, traces, model_lib, params, cfg,
+                   seed: int) -> dict:
+    """Phases 12, 14 (d) and 15: ``torch.profiler`` windows of ten decode
+    ticks with all eight slots of ``gemma_trace`` busy and of one prefill
+    of its longest (1,000-token) prompt."""
+    trace = gemma_trace(traces, cfg, seed)
+    out = {"profile": profile_decode(
+        torch, eng_mod, params, cfg, trace,
+        engine_config(eng_mod, "kernel", capture_logits=False))}
+    torch.cuda.empty_cache()
+    out["profile_prefill"] = profile_prefill(
+        torch, model_lib, params, cfg, max(trace, key=lambda r: len(r.tokens)))
+    torch.cuda.empty_cache()
+    return out
+
+
+def mma_bodies(torch, kernel_paths: dict, cfg) -> dict:
+    """``main_bodies`` of a dense config, checked to be the tensor-core
+    bodies for paged decode, verify and flash at its head dim."""
+    bodies = main_bodies(torch, kernel_paths, cfg)
+    attn = {k: bodies[k] for k in ("paged_attention",
+                                   "paged_attention_verify",
+                                   "flash_attention")}
+    check(set(attn.values()) == {"mma"},
+          f"{cfg.name}: kernel_path predicts {attn} at head dim "
+          f"{cfg.head_dim}; its bf16 calls must take the tensor-core bodies")
+    return bodies
+
+
+def serve_backends(torch, eng_mod, traces, params, cfg, seed: int,
+                   counters: dict, bodies: dict, rep: dict) -> dict:
+    """``gemma_trace`` on phase 3's engine config on the kernel and the
+    torch backends (phases 12, 14, 15): every request with its budget, the
+    kernel run's launches those ``family_launches`` counts, every call on
+    its body in ``bodies``, the torch run's none. Fills ``rep[backend]``;
+    returns the completed requests by backend."""
+    done = {}
+    for backend in ("kernel", "torch"):
+        eng, stats, wall, n, peak = family_serve(
+            torch, eng_mod, params, cfg, gemma_trace(traces, cfg, seed),
+            backend, counters, engine_config(eng_mod, backend))
+        want = family_launches(cfg, stats) if backend == "kernel" \
+            else dict.fromkeys(counters, 0)
+        check(n == want, f"{cfg.name} {backend} launches {n} != {want}")
+        paths = check_bodies(counters, n, f"{cfg.name} {backend}",
+                             bodies) if backend == "kernel" else None
+        done[backend] = eng.completed
+        rep[backend] = {**run_summary(stats, wall),
+                        "prefills": stats["prefills"], "launches": n,
+                        "paths": paths, "peak_mem_gb": peak}
+        del eng
+        torch.cuda.empty_cache()
+    return done
 
 
 def gemma_phase(torch, configs, eng_mod, traces, model_lib, api, seed: int,
@@ -3031,34 +3154,11 @@ def gemma_phase(torch, configs, eng_mod, traces, model_lib, api, seed: int,
            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
            "vocab": cfg.vocab_size, "dtype": cfg.dtype,
            "init_s": time.perf_counter() - t0}
-    bodies = main_bodies(torch, kernel_paths, cfg)
-    check(bodies["paged_attention"] == bodies["flash_attention"] == "mma",
-          f"{GEMMA_ARCH}: kernel_path predicts {bodies} at head dim "
-          f"{cfg.head_dim}; its bf16 calls must take the tensor-core bodies")
-    bf16 = {}
-    for backend in ("kernel", "torch"):
-        eng, stats, wall, n, peak = family_serve(
-            torch, eng_mod, params, cfg, gemma_trace(traces, cfg, seed),
-            backend, counters, engine_config(eng_mod, backend))
-        want = family_launches(cfg, stats) if backend == "kernel" \
-            else dict.fromkeys(counters, 0)
-        check(n == want, f"{GEMMA_ARCH} {backend} launches {n} != {want}")
-        paths = check_bodies(counters, n, f"{GEMMA_ARCH} {backend}",
-                             bodies) if backend == "kernel" else None
-        bf16[backend] = eng.completed
-        rep[backend] = {**run_summary(stats, wall),
-                        "prefills": stats["prefills"], "launches": n,
-                        "paths": paths, "peak_mem_gb": peak}
-        del eng
-        torch.cuda.empty_cache()
-    trace = gemma_trace(traces, cfg, seed)
-    rep["profile"] = profile_decode(
-        torch, eng_mod, params, cfg, trace,
-        engine_config(eng_mod, "kernel", capture_logits=False))
-    torch.cuda.empty_cache()
-    rep["profile_prefill"] = profile_prefill(
-        torch, model_lib, params, cfg, max(trace, key=lambda r: len(r.tokens)))
-    torch.cuda.empty_cache()
+    bodies = mma_bodies(torch, kernel_paths, cfg)
+    bf16 = serve_backends(torch, eng_mod, traces, params, cfg, seed,
+                          counters, bodies, rep)
+    rep.update(dense_profiles(torch, eng_mod, traces, model_lib, params,
+                              cfg, seed))
 
     def exact():
         """The same weights upcast to fp32 in place, the torch backend."""
@@ -3214,6 +3314,406 @@ def kimi_phase(torch, configs, eng_mod, traces, model_lib, api, moe_mod,
     return rep
 
 
+# ---------------------------------------------------------------------------
+# phase 14: qwen3-4b at its full published config
+# ---------------------------------------------------------------------------
+QWEN_ARCH = "qwen3-4b"
+# (c) preemption by page exhaustion, the JAX package's bar
+# (benchmarks/serve_engine.py run_preemption: worst-case reservation against
+# preempt-mode admission on one contention trace and one undersized pool)
+# at full width: 16 greedy requests, light prompts of 100 / 383 tokens with
+# 16 / 17 new tokens, every 4th a hog with a 1,000-token prompt and 128 new
+# tokens, on 8 slots, page 16, max_cache 1,536 and a pool of 144 pages plus
+# the null page, about half the ~290 that 8 full slots of this mix hold.
+PREEMPT_TRACE = dict(num_requests=16, prompt_lens=(100, 383),
+                     hog_prompt=1000, light_tokens=16, hog_tokens=128,
+                     hog_every=4)
+PREEMPT_PAGES = 144
+# Chunked prefill at 256 tokens: the JAX bar chunks its 32-token hog prompt
+# in 2 and its light prompts in 1; at 16 a 1,000-token hog prompt takes 63
+# chunk ticks, each a second 36-layer pass beside the decode pass, at 256
+# it takes 4, and a run of the trace 330 ticks (~31 s on an NVIDIA H100
+# 80GB HBM3 at 700 W)
+PREEMPT_CHUNK = 256
+# The bf16 runs' schedule. It depends only on the lengths (every lane
+# greedy, none stops early), so the CPU predicts it on a 1-layer model
+# (tests/test_torch_qwen3.py) and the card must repeat it.
+PREEMPT_PLAN = {"reserve": {"ticks": 329, "concurrency_hw": 4,
+                            "preemptions": 0, "replayed_tokens": 0},
+                "preempt": {"ticks": 330, "concurrency_hw": 8,
+                            "preemptions": 22, "preempted_requests": 10,
+                            "replayed_tokens": 30}}
+
+
+def preempt_config(eng_mod, mode: str, pages: Optional[int],
+                   capture_logits: bool = True):
+    """Phase 14 (c)'s engine: ``pages`` pages plus the null page (None:
+    fully provisioned, phase 14 (a)'s pool), ``mode`` admission."""
+    return eng_mod.EngineConfig(
+        num_slots=8, page_size=16, max_cache=1536,
+        prefill_chunk=PREEMPT_CHUNK, num_classes=3, latency_budget=512.0,
+        attn_backend="kernel", capture_logits=capture_logits,
+        admission_mode=mode, num_pages=None if pages is None else pages + 1)
+
+
+def uninterrupted(torch, eng_mod, traces, model_lib, api, params, cfg,
+                  seed: int, counters: dict, bodies: dict,
+                  victims: list) -> dict:
+    """The preempted requests ``victims`` served again from their fresh
+    trace entries on the full pool (no preemption), every call on its body
+    in ``bodies``, and held to it: bf16 by phase 3's rule, fp32 token for
+    token with logits within ``FP32_TOL``."""
+    what = f"{cfg.name} {cfg.dtype} preemption"
+    fresh = {r.rid: r for r in traces.contention_trace(cfg, seed=seed,
+                                                        **PREEMPT_TRACE)}
+    alone = [dataclasses.replace(fresh[r.rid], arrival=0) for r in victims]
+    eng, st, wall, n, _ = family_serve(
+        torch, eng_mod, params, cfg, alone, "kernel", counters,
+        preempt_config(eng_mod, "preempt", None))
+    check(st["preemptions"] == 0, f"{what}: the uninterrupted run "
+          f"preempted {st['preemptions']} times")
+    check_bodies(counters, n, f"{what} uninterrupted", bodies)
+    exact = cfg.dtype == "float32"
+    agree = agreement(torch, model_lib, api, victims, eng.completed,
+                      *(FP32_TOL if exact else BF16_TOL))
+    check(not agree["violations"], f"{what}: preempted streams disagree "
+          f"with their uninterrupted runs: {agree['first_violations']}")
+    if exact:
+        check(not agree["diverged"], f"{what}: preempted streams' tokens "
+              f"differ from their uninterrupted runs: {agree['diverged']}")
+    out = {"rids": sorted(r.rid for r in victims),
+           "preemptions": {r.rid: r.preemptions for r in victims},
+           "replayed_tokens": {r.rid: r.replayed_tokens for r in victims},
+           "uninterrupted_wall_s": wall, "uninterrupted_ticks": st["ticks"],
+           "agreement": {**{k: agree[k] for k in (
+               "max_logits_diff", "max_diff_over_tol", "diverged",
+               "violations")}, "rule": "fp32" if exact else "bf16"}}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def preemption(torch, eng_mod, traces, model_lib, api, params, cfg,
+               seed: int, counters: dict, bodies: dict) -> dict:
+    """Phase 14 (c) in bf16: ``contention_trace`` under each admission mode
+    on the undersized pool, every request with its budget, launches those
+    ``family_launches`` counts on ``bodies``; the schedule ``PREEMPT_PLAN``
+    (preemption fires and replays, preempt admits deeper than reserve);
+    each preempted request held to its ``uninterrupted`` run."""
+    what = f"{cfg.name} {cfg.dtype} preemption"
+    rep, runs = {}, {}
+    for mode in ("reserve", "preempt"):
+        trace = traces.contention_trace(cfg, seed=seed, **PREEMPT_TRACE)
+        eng, stats, wall, n, peak = family_serve(
+            torch, eng_mod, params, cfg, trace, "kernel", counters,
+            preempt_config(eng_mod, mode, PREEMPT_PAGES,
+                           capture_logits=mode == "preempt"))
+        check(n == family_launches(cfg, stats),
+              f"{what} {mode}: launches {n} != {family_launches(cfg, stats)}")
+        paths = check_bodies(counters, n, f"{what} {mode}", bodies)
+        runs[mode] = (eng, stats)
+        rep[mode] = {**{k: stats[k] for k in (
+            "completed", "ticks", "decode_ticks", "chunked_prefill_chunks",
+            "concurrency_hw", "pages_hw", "preemptions", "preempted_requests",
+            "replayed_tokens", "p50_latency", "p99_latency", "goodput")},
+            "wall_s": wall, "launches": n, "paths": paths,
+            "peak_mem_gb": peak}
+        got = {k: stats[k] for k in PREEMPT_PLAN[mode]}
+        check(got == PREEMPT_PLAN[mode], f"{what} {mode}: schedule {got}, "
+              f"the CPU's {PREEMPT_PLAN[mode]}")
+    eng = runs["preempt"][0]
+    rep["schedule"] = {r.rid: [r.preemptions, r.replayed_tokens]
+                       for r in eng.completed}
+    rep["preempted"] = uninterrupted(
+        torch, eng_mod, traces, model_lib, api, params, cfg, seed, counters,
+        bodies, [r for r in eng.completed if r.preemptions])
+    rep["pool_pages"] = PREEMPT_PAGES
+    rep["prefill_chunk"] = PREEMPT_CHUNK
+    del runs, eng
+    torch.cuda.empty_cache()
+    return rep
+
+
+def preemption_fp32(torch, eng_mod, traces, model_lib, api, params, cfg,
+                    seed: int, counters: dict, bodies: dict,
+                    schedule: dict) -> dict:
+    """Phase 14 (c) in fp32, cut short: the preempt run on the same trace
+    and pool, stepped until the first request that replayed tokens
+    completes, launches those ``family_launches`` counts on ``bodies``.
+    Every request done by then was preempted and replayed as in the bf16
+    run (``schedule``: rid -> [preemptions, replayed tokens]); the
+    preempted ones are held to their ``uninterrupted`` runs."""
+    what = f"{cfg.name} {cfg.dtype} preemption"
+    eng = eng_mod.Engine(params, cfg, preempt_config(
+        eng_mod, "preempt", PREEMPT_PAGES), device="cuda")
+    trace = traces.contention_trace(cfg, seed=seed, **PREEMPT_TRACE)
+
+    def until_replayed():
+        for out in eng.stream(trace, max_ticks=2000):
+            if out.finished and any(r.rid == out.rid and r.replayed_tokens
+                                    for r in eng.completed):
+                break
+        return eng.stats()
+
+    stats, wall, n = run_counted(torch, counters, until_replayed)
+    check(n == family_launches(cfg, stats),
+          f"{what}: launches {n} != {family_launches(cfg, stats)}")
+    paths = check_bodies(counters, n, what, bodies)
+    check_budgets(eng, what)
+    done = {r.rid: [r.preemptions, r.replayed_tokens] for r in eng.completed}
+    check(done and all(done[rid] == schedule[rid] for rid in done),
+          f"{what}: preemptions and replays {done}, bf16's {schedule}")
+    victims = [r for r in eng.completed if r.preemptions]
+    check(any(r.replayed_tokens for r in victims),
+          f"{what}: no preempted request replayed tokens: {done}")
+    rep = {"ticks": stats["ticks"], "completed": stats["completed"],
+           "preemptions": stats["preemptions"],
+           "replayed_tokens": stats["replayed_tokens"], "wall_s": wall,
+           "launches": n, "paths": paths}
+    rep["preempted"] = uninterrupted(
+        torch, eng_mod, traces, model_lib, api, params, cfg, seed, counters,
+        bodies, victims)
+    del eng
+    torch.cuda.empty_cache()
+    return rep
+
+
+def dense_spec(torch, eng_mod, traces, spec_mod, model_lib, api, params,
+               cfg, seed: int, counters: dict, bodies: dict) -> dict:
+    """Phase 14 (b): four greedy requests of ``gemma_trace`` on the same
+    weights made draft-friendly at depth ``SPEC_DEPTH``, ``spec_decode`` =
+    ``SPEC_K`` and without, on phase 3's engine config: budgets, verify
+    launched num_layers x spec ticks, paged decode num_layers x plain
+    ticks + ``SPEC_DEPTH`` x ``SPEC_K`` x spec ticks, flash num_layers x
+    prefills, every call on its body; the streams agree by phase 3's rule."""
+    drafty = spec_mod.make_draft_friendly(params, cfg, SPEC_DEPTH)
+    runs = {}
+    for spec in (True, False):
+        reqs = [dataclasses.replace(r, arrival=0)
+                for r in gemma_trace(traces, cfg, seed)
+                if r.params.is_greedy][:4]
+        ecfg = engine_config(eng_mod, "kernel")._replace(
+            spec_decode=SPEC_K if spec else 0,
+            spec_draft_layers=SPEC_DEPTH if spec else 0)
+        eng, st, wall, n, _ = family_serve(torch, eng_mod, drafty, cfg, reqs,
+                                           "kernel", counters, ecfg)
+        check_bodies(counters, n, f"{cfg.name} spec={spec}", bodies)
+        runs[spec] = (eng, st, wall, n)
+    eng, st, wall, n = runs[True]
+    check(st["spec_ticks"] > 0, f"{cfg.name}: the spec run ran no spec tick")
+    layers = cfg.num_layers
+    want = {"paged_attention_verify": layers * st["spec_ticks"],
+            "paged_attention": layers * st["decode_ticks"]
+            + SPEC_DEPTH * SPEC_K * st["spec_ticks"],
+            "flash_attention": layers * st["prefills"], "moe_gmm": 0}
+    check(n == want, f"{cfg.name} spec run launches {n} != {want}")
+    plain = runs[False]
+    check(plain[3] == family_launches(cfg, plain[1]),
+          f"{cfg.name} non-spec run launches {plain[3]}")
+    agree = agreement(torch, model_lib, api, eng.completed,
+                      plain[0].completed, *BF16_TOL)
+    check(not agree["violations"], f"{cfg.name} spec and non-spec streams "
+          f"disagree: {agree['first_violations']}")
+    out = {"spec": {**run_summary(st, wall), "launches": n},
+           "non_spec": {**run_summary(plain[1], plain[2]),
+                        "launches": plain[3]},
+           "agreement": {**agree, "rtol": BF16_TOL[0], "atol": BF16_TOL[1]},
+           "k": SPEC_K, "draft_layers": SPEC_DEPTH}
+    del runs, eng, drafty
+    torch.cuda.empty_cache()
+    return out
+
+
+
+
+def qwen_phase(torch, configs, eng_mod, traces, model_lib, api, spec_mod,
+               seed: int, counters: dict, kernel_paths: dict) -> dict:
+    """Phase 14: full-width qwen3-4b (36 layers, GQA 32 / 8 at head dim
+    128, qk-norm), bf16, ``--seed`` weights. (a) ``gemma_trace`` on both
+    backends (``serve_backends``), flash 36 x prefills and paged decode 36
+    x ticks on ``mma``, logits by ``bf16_rule``; (d) profiled windows of
+    ten decode ticks and of one 1,000-token prefill; (c) ``preemption`` in
+    bf16; (b) ``dense_spec``; then the same weights upcast to fp32 in
+    place: ``preemption_fp32`` on the CUDA-core bodies, and the fp32 torch
+    run ``bf16_rule`` reads where the 1e-1 rule misses."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(QWEN_ARCH)
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    rep = {"params_b": model_lib.param_count(params) / 1e9,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "head_dim": cfg.head_dim, "qk_norm": cfg.qk_norm,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+           "rope_theta": cfg.rope_theta, "dtype": cfg.dtype,
+           "init_s": time.perf_counter() - t0}
+    check(cfg.qk_norm and cfg.head_dim == 128, f"{QWEN_ARCH}: {cfg}")
+    bodies = mma_bodies(torch, kernel_paths, cfg)
+    seconds = {}
+    t1 = time.perf_counter()
+    bf16 = serve_backends(torch, eng_mod, traces, params, cfg, seed,
+                          counters, bodies, rep)
+    rep.update(dense_profiles(torch, eng_mod, traces, model_lib, params,
+                              cfg, seed))
+    seconds["serve_and_profile"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rep["preemption_bf16"] = preemption(torch, eng_mod, traces, model_lib,
+                                        api, params, cfg, seed, counters,
+                                        bodies)
+    seconds["preemption_bf16"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rep["spec"] = dense_spec(torch, eng_mod, traces, spec_mod, model_lib, api,
+                             params, cfg, seed, counters, bodies)
+    seconds["spec"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    params.float()                   # in place, one parameter at a time
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rep["preemption_fp32"] = preemption_fp32(
+        torch, eng_mod, traces, model_lib, api, params, cfg32, seed,
+        counters, dict.fromkeys(bodies, "cuda_core"),
+        rep["preemption_bf16"]["schedule"])
+    seconds["preemption_fp32"] = time.perf_counter() - t1
+
+    def exact():
+        """The same weights (upcast above), the torch backend."""
+        t2 = time.perf_counter()
+        eng = family_serve(torch, eng_mod, params, cfg32,
+                           gemma_trace(traces, cfg32, seed), "torch",
+                           counters, engine_config(eng_mod, "torch"))[0]
+        rep["fp32_s"] = time.perf_counter() - t2
+        return eng.completed
+
+    rep["kernel_vs_torch_bf16"] = bf16_rule(torch, model_lib, api,
+                                            QWEN_ARCH, bf16, exact)
+    del params, bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["seconds"] = seconds
+    rep["phase_s"] = time.perf_counter() - t0
+    return rep
+
+
+# ---------------------------------------------------------------------------
+# phase 15: minicpm-2b at its full published config, serving and training
+# ---------------------------------------------------------------------------
+MINICPM_ARCH = "minicpm-2b"
+# 15 (b): three steps at 4 x 128 under WSD: step 1 in the warmup (lr x
+# 1/2), step 2 on the plateau (stable_frac x decay_steps = 2), step 3 in
+# the 1-sqrt decay tail. AdamW's moments in fp32 (2 x 10.9 GB), updated
+# in place
+WSD_STEPS, WSD_BATCH = 3, 4
+
+
+def wsd_config(seed: int):
+    from repro_torch.configs.base import TrainConfig
+    return TrainConfig(learning_rate=1e-3, schedule="wsd", warmup_steps=2,
+                       decay_steps=4, stable_frac=0.5, seed=seed)
+
+
+def minicpm_phase(torch, configs, eng_mod, traces, model_lib, api,
+                  seed: int, counters: dict, kernel_paths: dict) -> dict:
+    """Phase 15: full-width minicpm-2b (40 layers, MHA 36 / 36 at head dim
+    64, vocab 122,753, tied), bf16, ``--seed`` weights. (a)
+    ``gemma_trace`` on both backends (``serve_backends``: flash 40 x
+    prefills and paged decode 40 x ticks on ``mma``), logits by
+    ``bf16_rule`` (the same weights upcast for its fp32 run), profiled
+    windows of ten decode ticks and one 1,000-token prefill. (b) Three
+    ``train_step`` calls at 4 x 128 under ``wsd_config`` (warmup, stable
+    and decay each a step; fp32 moments): losses finite, each step's
+    learning rate the CPU's ``optimizer.schedule``, peak memory; then one
+    smoke-size fp32 step on the card and on the CPU (``card_vs_cpu``, the
+    WSD schedule).
+    No kernel launches in (b)."""
+    from repro_torch.data import pipeline
+    from repro_torch.dist.checkpoint import flatten
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(MINICPM_ARCH)
+    params = model_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    rep = {"params_b": model_lib.param_count(params) / 1e9,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+           "init_s": time.perf_counter() - t0}
+    bodies = mma_bodies(torch, kernel_paths, cfg)
+    bf16 = serve_backends(torch, eng_mod, traces, params, cfg, seed,
+                          counters, bodies, rep)
+    rep.update(dense_profiles(torch, eng_mod, traces, model_lib, params,
+                              cfg, seed))
+
+    def exact():
+        """The same weights upcast to fp32 in place, the torch backend."""
+        t1 = time.perf_counter()
+        params.float()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        eng = family_serve(torch, eng_mod, params, cfg32,
+                           gemma_trace(traces, cfg32, seed), "torch",
+                           counters, engine_config(eng_mod, "torch"))[0]
+        rep["fp32_s"] = time.perf_counter() - t1
+        return eng.completed
+
+    rep["kernel_vs_torch_bf16"] = bf16_rule(torch, model_lib, api,
+                                            MINICPM_ARCH, bf16, exact)
+    del params, bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["serve_s"] = time.perf_counter() - t0
+
+    # -- 15b: training under WSD --------------------------------------------
+    t1 = time.perf_counter()
+    reset_counts(counters)
+    tcfg = wsd_config(seed)
+    torch.cuda.reset_peak_memory_stats()
+    state = ts.init_train_state(
+        torch.Generator(device="cuda").manual_seed(seed), cfg, tcfg,
+        device="cuda")
+    data = pipeline.init_data_state("cuda")
+    steps = []
+    for _ in range(WSD_STEPS):
+        batch, data = pipeline.sample_batch(cfg, WSD_BATCH, TRAIN_SEQ, data)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        state, m = ts.train_step(state, batch, cfg, tcfg)
+        torch.cuda.synchronize()
+        cpu_lr = float(opt.schedule(tcfg, torch.tensor(int(state.step),
+                                                       dtype=torch.int32)))
+        steps.append({"step": int(state.step), "loss": float(m.loss),
+                      "lr": float(m.lr), "cpu_lr": cpu_lr,
+                      "s": time.perf_counter() - t2})
+    check(all(np.isfinite([s["loss"] for s in steps])),
+          f"{MINICPM_ARCH} training: non-finite loss {steps}")
+    check(all(s["lr"] == s["cpu_lr"] for s in steps),
+          f"{MINICPM_ARCH} training: the card's learning rates are not the "
+          f"CPU's schedule: {steps}")
+    lrs = [s["lr"] for s in steps]
+    check(lrs[0] < lrs[1] > lrs[2] > 0, f"{MINICPM_ARCH}: the WSD steps do "
+          f"not cover warmup, plateau and decay: {lrs}")
+    rep["train"] = {"batch": WSD_BATCH, "seq": TRAIN_SEQ, "steps": steps,
+                    "schedule": dataclasses.asdict(tcfg),
+                    "moments": str(flatten(state.opt.mu)[0][0].dtype),
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "train_s": time.perf_counter() - t1}
+    del state, batch, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["parity_fp32"] = card_vs_cpu(torch, configs, MINICPM_ARCH, seed,
+                                     schedule="wsd")
+    n = {name: fn.launches for name, fn in counters.items()}
+    check(not any(n.values()), f"phase 15 training launched kernels: {n}")
+    rep["phase_s"] = time.perf_counter() - t0
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="on-card smoke of the port")
     ap.add_argument("--seed", type=int, default=0)
@@ -3316,6 +3816,19 @@ def main() -> int:
                               paged_attention_verify_ref, **KIMI_VERIFY)
     flash112_t = time_flash(torch, gen, flash_attention, attention_ref, h=64,
                             hk=8, d=112, lengths=(1000,))
+    # the head dim 128 at qwen3-4b's GQA 32 / 8 on phase 14's path (decode,
+    # verify under speculation, its prefills beside SDPA) and minicpm-2b's
+    # 36 / 36 at D = 64 on phase 15's (decode, a 1,000-token prefill)
+    paged128_t = time_paged(torch, gen, paged_attention, paged_attention_ref,
+                            **QWEN_DECODE)
+    verify128_t = time_verify(torch, gen, paged_attention_verify,
+                              paged_attention_verify_ref, **QWEN_VERIFY)
+    flash128_t = time_flash(torch, gen, flash_attention, attention_ref, h=32,
+                            hk=8, d=128, lengths=(1000, 383))
+    paged_mc_t = time_paged(torch, gen, paged_attention, paged_attention_ref,
+                            **MINICPM_DECODE)
+    flash_mc_t = time_flash(torch, gen, flash_attention, attention_ref, h=36,
+                            hk=36, d=64, lengths=(1000,))
     gmm_t = time_gmm(torch, gen, moe_gmm, gmm_ref)
     print("kernel timing shapes: " + json.dumps(
         {"paged_attention": paged_t["shape"],
@@ -3330,6 +3843,12 @@ def main() -> int:
          "paged_attention_d112": paged112_t["shape"],
          "paged_attention_verify_d112": verify112_t["shape"],
          "flash_attention_d112": flash112_t["shape"],
+         "paged_attention_d128": paged128_t["shape"],
+         "paged_attention_verify_d128": verify128_t["shape"],
+         "flash_attention_d128": [flash128_t["shape"],
+                                  flash128_t["s383"]["shape"]],
+         "paged_attention_minicpm": paged_mc_t["shape"],
+         "flash_attention_minicpm": flash_mc_t["shape"],
          "moe_gmm": [gmm_t["shape"]] + [gmm_t[k]["shape"] for k in (
              "prefill", "kimi", "kimi_prefill")]}))
     print("paged kernels beside SDPA on the same live K / V, gathered and "
@@ -3344,7 +3863,16 @@ def main() -> int:
                    "dense_sdpa": paged112_t["dense_sdpa"]},
                "paged_attention_verify_d112": {
                    "device_ms": verify112_t["device_ms"],
-                   "dense_sdpa": verify112_t["dense_sdpa"]}}))
+                   "dense_sdpa": verify112_t["dense_sdpa"]},
+               "paged_attention_d128": {
+                   "device_ms": paged128_t["device_ms"],
+                   "dense_sdpa": paged128_t["dense_sdpa"]},
+               "paged_attention_verify_d128": {
+                   "device_ms": verify128_t["device_ms"],
+                   "dense_sdpa": verify128_t["dense_sdpa"]},
+               "paged_attention_minicpm": {
+                   "device_ms": paged_mc_t["device_ms"],
+                   "dense_sdpa": paged_mc_t["dense_sdpa"]}}))
 
     phase_start["3"] = time.perf_counter()
     # -- phase 3: the engine on smollm-360m -----------------------------------
@@ -3523,6 +4051,27 @@ def main() -> int:
     phase13_paths = kimi_rep["kernel"]["paths"]
     print(f"{KIMI_ARCH}: " + json.dumps(kimi_rep))
 
+    phase_start["14"] = time.perf_counter()
+    # -- phase 14: qwen3-4b at its full published config ----------------------
+    qwen_rep = qwen_phase(torch, configs, eng_mod, traces, model_lib, api,
+                          spec_mod, args.seed, counters, kernel_paths)
+    print(f"{QWEN_ARCH}: " + json.dumps(qwen_rep))
+    phase14 = {"serve": qwen_rep["kernel"]["launches"],
+               "spec": qwen_rep["spec"]["spec"]["launches"],
+               "preempt": qwen_rep["preemption_bf16"]["preempt"]["launches"]}
+
+    phase_start["15"] = time.perf_counter()
+    # -- phase 15: minicpm-2b at its full published config --------------------
+    minicpm_rep = minicpm_phase(torch, configs, eng_mod, traces, model_lib,
+                                api, args.seed, counters, kernel_paths)
+    print(f"{MINICPM_ARCH}: " + json.dumps(minicpm_rep))
+    phase15 = minicpm_rep["kernel"]["launches"]
+
+    def later(name: str) -> dict:
+        """A kernel's launches in phases 14 and 15, by run."""
+        return {"phase14_launches": {k: n[name] for k, n in phase14.items()},
+                "phase15_launches": phase15[name]}
+
     kernels = [
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -3539,7 +4088,10 @@ def main() -> int:
          "phase12_paths": gemma_rep["kernel"]["paths"]["paged_attention"],
          "d112": {k: paged112_t[k] for k in TIMED},
          "phase13_launches": phase13["paged_attention"],
-         "phase13_paths": phase13_paths["paged_attention"]},
+         "phase13_paths": phase13_paths["paged_attention"],
+         "d128": {k: paged128_t[k] for k in TIMED},
+         "minicpm": {k: paged_mc_t[k] for k in TIMED},
+         **later("paged_attention")},
         {"name": "paged_attention_verify", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:118",
@@ -3553,7 +4105,9 @@ def main() -> int:
          "phase13_paths": phase13_paths["paged_attention_verify"],
          "d112": {k: verify112_t[k] for k in TIMED},
          **{k: verify_t[k] for k in TIMED},
-         "d256": {k: verify256_t[k] for k in TIMED}},
+         "d256": {k: verify256_t[k] for k in TIMED},
+         "d128": {k: verify128_t[k] for k in TIMED},
+         **later("paged_attention_verify")},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:70",
@@ -3570,7 +4124,11 @@ def main() -> int:
          "phase12_paths": gemma_rep["kernel"]["paths"]["flash_attention"],
          "d112": {k: flash112_t[k] for k in LIB_TIMED},
          "phase13_launches": phase13["flash_attention"],
-         "phase13_paths": phase13_paths["flash_attention"]},
+         "phase13_paths": phase13_paths["flash_attention"],
+         "d128": {k: flash128_t[k] for k in LIB_TIMED},
+         "d128_s383": {k: flash128_t["s383"][k] for k in LIB_TIMED},
+         "minicpm": {k: flash_mc_t[k] for k in LIB_TIMED},
+         **later("flash_attention")},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
          "replaces": "src/repro/kernels/moe_gmm/kernel.py:45",

@@ -15,7 +15,11 @@ streamed as they are emitted:
         [--temperature 0.8 --top-p 0.9 --sample-seed 7] \
         [--trace shared-prefix|returning-tenant|contention|agentic|fleet] \
         [--no-prefix-sharing] [--pin-pages 8] [--admission reserve] \
-        [--prefill-streams 2] [--spec-decode 4 --spec-draft-layers 1]
+        [--prefill-streams 2] [--spec-decode 4 --spec-draft-layers 1] \
+        [--logprobs]
+
+``--logprobs`` records each chosen token's logprob (the raw model
+distribution) and streams it beside the token (``lp [...]``).
 
 ``--replicas N`` (with ``--stream``) serves the trace through the placement
 router (``serve.router``): N replicas, one global queue, per-tick placement
@@ -48,6 +52,7 @@ MoE arch:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import os
 import tempfile
@@ -152,6 +157,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--spec-draft-layers", type=int, default=0,
                     help="truncated draft depth in layers (required > 0 and "
                          "< num_layers with --spec-decode)")
+    ap.add_argument("--logprobs", action="store_true",
+                    help="record each chosen token's logprob (raw model "
+                         "distribution) and stream it with the token")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--top-k", type=int, default=0)
@@ -378,6 +386,9 @@ def main(argv=None):
         admission_mode=args.admission, spec_decode=args.spec_decode,
         spec_draft_layers=args.spec_draft_layers)
     trace = make_trace(ap, args, cfg)
+    if args.logprobs:
+        for req in trace:
+            req.params = dataclasses.replace(req.params, logprobs=True)
     if args.replicas > 1:
         return serve_fleet(args, params, cfg, ecfg, bias, trace)
 
@@ -391,7 +402,10 @@ def main(argv=None):
         tail = f" [{out.finish_reason}, {out.latency_ticks} ticks]" \
             if out.finished and out.latency_ticks is not None \
             else (f" [{out.finish_reason}]" if out.finished else "")
-        print(f"  tick {out.tick:4d} req {out.rid} += {out.new_tokens}{tail}")
+        lp = f" lp {[round(x, 6) for x in out.new_logprobs]}" \
+            if out.new_logprobs is not None else ""
+        print(f"  tick {out.tick:4d} req {out.rid} += {out.new_tokens}{lp}"
+              f"{tail}")
     stats = eng.stats()
     if args.device == "cuda":
         torch.cuda.synchronize()

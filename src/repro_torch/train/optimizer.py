@@ -138,7 +138,10 @@ def adamw_update(grads, state: AdamWState, params, cfg: TrainConfig,
                  lr: Optional[torch.Tensor] = None):
     """Returns (new_params, new_state, grad_norm). Gradients are clipped by
     their global norm; weight decay is decoupled and skipped for 1-D
-    leaves."""
+    leaves. The moments are updated in place, one leaf at a time: the new
+    state holds ``state``'s moment tensors, so a step keeps one copy of
+    them, not an old and a new one (with fp32 moments of 2.72 B parameters,
+    21.8 GB less)."""
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     step = state.step + 1
     lr = schedule(cfg, step) if lr is None else lr
@@ -153,21 +156,19 @@ def adamw_update(grads, state: AdamWState, params, cfg: TrainConfig,
         u = (mu_n / c1) / (torch.sqrt(_nu_value(nu_n) / c2) + cfg.eps)
         if p.dim() >= 2:
             u = u + cfg.weight_decay * p.float()
-        new_p = (p.float() - lr * u).to(p.dtype)
-        if isinstance(nu_n, dict):
-            nu_n = {k: v.to(mu.dtype) for k, v in nu_n.items()}
+        mu.copy_(mu_n)
+        if isinstance(nu, dict):
+            for k, v in nu_n.items():
+                nu[k].copy_(v)
         else:
-            nu_n = nu_n.to(mu.dtype)
-        return new_p, mu_n.to(mu.dtype), nu_n
+            nu.copy_(nu_n)
+        return (p.float() - lr * u).to(p.dtype)
 
     flat_p, treedef = flatten(params)
     flat_g, _ = flatten(grads)
     flat_mu, _ = flatten(state.mu)
     flat_nu = _leaves_up_to(treedef, state.nu)
-    out = [upd(p, g, m, n) for p, g, m, n in zip(flat_p, flat_g, flat_mu,
-                                                 flat_nu, strict=True)]
-    return (unflatten(treedef, [o[0] for o in out]),
-            AdamWState(step=step,
-                       mu=unflatten(treedef, [o[1] for o in out]),
-                       nu=unflatten(treedef, [o[2] for o in out])),
-            gnorm)
+    new_p = [upd(p, g, m, n) for p, g, m, n in zip(flat_p, flat_g, flat_mu,
+                                                   flat_nu, strict=True)]
+    return (unflatten(treedef, new_p),
+            AdamWState(step=step, mu=state.mu, nu=state.nu), gnorm)

@@ -333,6 +333,41 @@ def test_kimi_k2_heads_take_the_mma_body(card, kernel):
     assert _row_rel_err(out, ref) <= ROW_TOL[dtype]
 
 
+# qwen3-4b's heads (GQA 32 / 8 at D = 128) and minicpm-2b's (MHA 36 / 36 at
+# D = 64) at chip_smoke.py's phase 14 and 15 shapes: decode over the 96-page
+# table at the in-flight lengths above, verify (Sq = 5, qwen3-4b's spec run)
+# from those positions, flash over a 1,000-token prompt
+@pytest.mark.parametrize("kernel,h,hk,d", [
+    ("paged", 32, 8, 128), ("verify", 32, 8, 128), ("flash", 32, 8, 128),
+    ("paged", 36, 36, 64), ("flash", 36, 36, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qwen3_and_minicpm_heads_take_their_body(card, kernel, h, hk, d,
+                                                 dtype):
+    """The launch is counted under the body ``kernel_path`` names (bf16 on
+    the tensor cores, fp32 on CUDA cores) and the output holds the limits
+    of the tests above."""
+    path = paged_pkg.kernel_path(dtype, d)
+    assert path == flash_pkg.kernel_path(dtype, d) == \
+        ("mma" if dtype == torch.bfloat16 else "cuda_core")
+    if kernel == "flash":
+        _check_flash(card, h + d, 1, h, hk, 1000, d, True, dtype,
+                     5e-2 if dtype == torch.bfloat16 else 5e-5,
+                     ROW_TOL[dtype])
+        return
+    if kernel == "paged":
+        fn, ref_fn = paged_attention, paged_attention_ref
+        args = _paged_inputs(h + d, 8, h, hk, d, 16, 96, dtype, card,
+                             KIMI_LENGTHS)
+    else:
+        fn, ref_fn = paged_attention_verify, paged_attention_verify_ref
+        args = _verify_inputs(h + d, 8, 5, h, hk, d, 16, 96, dtype, card,
+                              KIMI_LENGTHS)
+    out = _run_counted(fn, args, path)
+    ref = ref_fn(*args)
+    assert (out.float() - ref.float()).abs().max().item() <= PAGED_TOL[dtype]
+    assert _row_rel_err(out, ref) <= ROW_TOL[dtype]
+
+
 def _check_flash(card, seed, b, h, hk, s, d, causal, dtype, tol, row_tol):
     g = torch.Generator(device=card).manual_seed(seed)
     q = torch.randn(b, h, s, d, generator=g, device=card).to(dtype)

@@ -21,8 +21,6 @@ CPU the port's kernel backend runs each kernel's plain version; the card
 tests (``tests/test_torch_cuda.py``) hold the kernels to those.
 """
 import dataclasses
-from pathlib import Path
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,14 +38,14 @@ from repro.serve import engine as jengine
 from repro.serve import traces as jtraces
 from repro_torch import configs
 from repro_torch.core import router
-from repro_torch.kernels import flash_attention as flash_pkg
-from repro_torch.kernels import moe_gmm as gmm_pkg
-from repro_torch.kernels import paged_attention as paged_pkg
 from repro_torch.kernels.flash_attention import attention_ref
 from repro_torch.kernels.paged_attention import (paged_attention_ref,
                                                  paged_attention_verify_ref)
-from repro_torch.models import layers, model, moe
+from repro_torch.models import model, moe
 from repro_torch.serve import api, engine, traces
+
+from _torch_rehearsal import (KERNEL_PATHS, StandIn, chip_smoke_on_cpu,
+                              counting_wrappers)
 
 # smoke-size ops: one intra-op thread per test worker (the suite runs
 # several workers; torch's default of one thread per core oversubscribes)
@@ -55,7 +53,6 @@ torch.set_num_threads(1)
 
 jax.config.update("jax_platform_name", "cpu")
 
-ROOT = Path(__file__).resolve().parents[1]
 ARCH = "kimi-k2-1t-a32b"
 TOL = 1e-5
 KIMI_HEADS = dict(head_dim=112, num_heads=8, num_kv_heads=1)
@@ -272,21 +269,6 @@ def test_flash_plain_at_kimi_grouping_matches_jax(causal):
 # ---------------------------------------------------------------------------
 # phase 13 of chip_smoke.py, rehearsed on the CPU
 # ---------------------------------------------------------------------------
-def _counting(real, path_of):
-    """``real`` (a kernel wrapper, which on CPU tensors runs its plain
-    version and counts nothing) counted as the card would count it: one
-    launch a call, under the body ``path_of(args)`` names."""
-    def fn(*args, **kw):
-        out = real(*args, **kw)
-        fn.launches += 1
-        fn.launches_by_path[path_of(args)] += 1
-        return out
-
-    fn.launches = 0
-    fn.launches_by_path = dict.fromkeys(flash_pkg.ops.PATHS, 0)
-    return fn
-
-
 def test_phase13_rehearsal_on_cpu(monkeypatch):
     """``chip_smoke.kimi_phase`` with every ``"cuda"`` read as ``"cpu"``,
     the ``torch.cuda`` sync and memory calls and the profiler stubbed, the
@@ -295,47 +277,11 @@ def test_phase13_rehearsal_on_cpu(monkeypatch):
     prefill, paged decode once a tick and the grouped matmul 3 x (ticks +
     prefills) on ``mma`` (the CUDA-core bodies in fp32), and passes phase
     6's MoE rule."""
-    src = (ROOT / "chip_smoke.py").read_text().replace('"cuda"', '"cpu"')
-    cs = {"__name__": "chip_smoke_on_cpu",
-          "__file__": str(ROOT / "chip_smoke.py")}
-    exec(compile(src, str(ROOT / "chip_smoke.py"), "exec"), cs)
-    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
-        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
-    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
-
-    def device_rows(torch, warm, run, cpu=True):
-        warm()
-        run()
-        return 1.0, []
-
-    cs["device_rows"] = device_rows
-
-    def attn_path(args):
-        return paged_pkg.kernel_path(args[0].dtype, args[0].shape[-1])
-
-    counters = {
-        "paged_attention": _counting(layers.paged_attention, attn_path),
-        "paged_attention_verify": _counting(layers.paged_attention_verify,
-                                            attn_path),
-        "flash_attention": _counting(layers.flash_attention, attn_path),
-        "moe_gmm": _counting(moe.moe_gmm, lambda a: gmm_pkg.kernel_path(
-            a[0].dtype, a[0].shape[-1], a[1].shape[-1]))}
-    for mod, name in ((layers, "paged_attention"),
-                      (layers, "paged_attention_verify"),
-                      (layers, "flash_attention"), (moe, "moe_gmm")):
-        monkeypatch.setattr(mod, name, counters[name])
-
-    class Configs:
-        @staticmethod
-        def get_config(name):
-            assert name == ARCH
-            return _shape(configs, "bfloat16")
-
-    kernel_paths = {"paged": paged_pkg.kernel_path,
-                    "flash": flash_pkg.kernel_path,
-                    "gmm": gmm_pkg.kernel_path}
-    rep = cs["kimi_phase"](torch, Configs, engine, traces, model, api, moe,
-                           router, 0, counters, kernel_paths)
+    cs = chip_smoke_on_cpu(monkeypatch)
+    counters = counting_wrappers(monkeypatch)
+    rep = cs["kimi_phase"](torch, StandIn({ARCH: _shape(configs, "bfloat16")}),
+                           engine, traces, model, api, moe, router, 0,
+                           counters, KERNEL_PATHS)
     ticks, prefills = rep["kernel"]["decode_ticks"], rep["kernel"]["prefills"]
     assert rep["kernel"]["requests"] == 8 and prefills == 8 and ticks > 30
     assert rep["kernel"]["launches"] == {

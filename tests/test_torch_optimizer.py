@@ -112,6 +112,36 @@ def test_stacked_norm_scales_are_decayed():
     assert torch.equal(new["final"], p0["final"])
 
 
+@pytest.mark.parametrize("factored", [False, True])
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_moments_update_in_place(factored, state_dtype):
+    """The new state holds the old state's moment tensors, updated (one
+    copy of the moments a step), with JAX's values after one step; the
+    parameters passed in stay as they were."""
+    rng = np.random.default_rng(2)
+    p0 = _params(rng)
+    g = jax.tree.map(lambda a: 3 * rng.normal(size=a.shape), p0)
+    dt = getattr(torch, state_dtype)
+    tp = _to_torch(p0)
+    st = opt.init_opt_state(tp, state_dtype=dt, factored=factored)
+    before = flatten(st)[0]
+    cfg = TrainConfig(learning_rate=1e-2, warmup_steps=0)
+    _, new, _ = opt.adamw_update(_to_torch(g), st, tp, cfg)
+    after = flatten(new)[0]
+    assert len(after) == len(before)
+    assert all(a is b for a, b in zip(after[1:], before[1:]))   # [0]: step
+    assert all(bool(a.abs().max() > 0) for a in after[1:])
+    assert all(torch.equal(a, b) for a, b in
+               zip(flatten(tp)[0], flatten(_to_torch(p0))[0]))
+    js = jopt.init_opt_state(_to_jax(p0), state_dtype=jnp.dtype(state_dtype),
+                             factored=factored)
+    _, js, _ = jopt.adamw_update(_to_jax(g), js, _to_jax(p0),
+                                 JTrainConfig(learning_rate=1e-2,
+                                              warmup_steps=0))
+    for a, b in zip(jax.tree.leaves(js)[1:], after[1:], strict=True):
+        assert _rel(np.asarray(a, np.float32), b.float()) <= TOL[state_dtype]
+
+
 @pytest.mark.parametrize("arch", ["smollm-360m", "recurrentgemma-9b",
                                   "granite-moe-3b-a800m"])
 @pytest.mark.parametrize("factored", [False, True])

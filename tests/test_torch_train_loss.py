@@ -40,14 +40,17 @@ LOSS_TOL, GRAD_TOL = 1e-5, 1e-5
 WRAPPERS = (flash_attention, paged_attention, paged_attention_verify,
             moe_gmm, grid_step)
 # (arch, config overrides): every family, MoE under both router modes that
-# change the loss, the hybrid with a window shorter than the sequence
+# change the loss, the hybrid with a window shorter than the sequence, and
+# the two dense configs with their own paths (qwen3-4b's qk-norm, minicpm-2b)
 CASES = [("smollm-360m", {}),
          ("granite-moe-3b-a800m", {}),
          ("granite-moe-3b-a800m", {"router_mode": "aux"}),
          ("mamba2-130m", {}),
          ("recurrentgemma-9b", {"local_window": 8}),
          ("paligemma-3b", {}),
-         ("musicgen-medium", {})]
+         ("musicgen-medium", {}),
+         ("qwen3-4b", {}),
+         ("minicpm-2b", {})]
 
 
 def _pair(arch, over):

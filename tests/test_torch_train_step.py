@@ -27,6 +27,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core import router as irouter
 from repro_torch.data import pipeline
 from repro_torch.dist.checkpoint import flatten, unflatten
+from repro_torch.train import optimizer as opt
 from repro_torch.train import train_step as ts
 
 torch.set_num_threads(1)
@@ -43,12 +44,12 @@ def _rel(a, b) -> float:
     return float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
 
 
-def _carried(arch, accum, over=None):
+def _carried(arch, accum, over=None, **train):
     over = over or {}
     jcfg = dataclasses.replace(jconfigs.get_config(arch).smoke(), **over)
     cfg = dataclasses.replace(configs.get_config(arch).smoke(), **over)
-    kw = dict(learning_rate=1e-2, warmup_steps=0, decay_steps=100,
-              accum_steps=accum, eps=PARITY_EPS)
+    kw = {**dict(learning_rate=1e-2, warmup_steps=0, decay_steps=100,
+                 accum_steps=accum, eps=PARITY_EPS), **train}
     jt, tt = JTrainConfig(**kw), TrainConfig(**kw)
     jstate = jts.init_train_state(jax.random.PRNGKey(0), jcfg, jt)
     state = ts.train_state_from_numpy(jax.tree.map(np.asarray, jstate), cfg,
@@ -59,7 +60,20 @@ def _carried(arch, accum, over=None):
 @pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-3b-a800m"])
 @pytest.mark.parametrize("accum", [1, 2])
 def test_train_step_matches_jax(arch, accum):
-    jcfg, cfg, jt, tt, jstate, state = _carried(arch, accum)
+    _step_matches_jax(*_carried(arch, accum))
+
+
+def test_train_step_matches_jax_under_wsd():
+    """minicpm-2b under its own schedule, WSD, from a step in the 1-sqrt
+    decay tail (no plateau: stable_frac 0; lr x 1/2 at step 1)."""
+    args = _carried("minicpm-2b", 1, schedule="wsd", decay_steps=4,
+                    stable_frac=0.0)
+    assert float(opt.schedule(args[3], torch.tensor(1))) == \
+        pytest.approx(0.5e-2, rel=1e-6)
+    _step_matches_jax(*args)
+
+
+def _step_matches_jax(jcfg, cfg, jt, tt, jstate, state):
     batch, _ = jpipe.sample_batch(jcfg, 4, 16, jpipe.init_data_state())
     jnew, jm = jax.jit(lambda s, b: jts.train_step(s, b, jcfg, jt))(jstate,
                                                                    batch)
