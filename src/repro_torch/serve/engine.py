@@ -74,6 +74,10 @@ Fleet hooks (``serve.router``): placement telemetry read on the host
 (``class_costs``, ``anergy_levels``, ``prefix_affinity``, ``occupancy``),
 ``evacuate`` for failover, ``drop_device_state`` for a fenced replica, and
 the warm-state snapshot (``export_warm_state`` / ``import_warm_state``).
+
+Spans (``repro_torch.telemetry``): ``step`` reads the tracer's switch once
+and keeps the answer in ``_tr`` for the helpers beneath it; with recording
+off nothing more is read or recorded.
 """
 from __future__ import annotations
 
@@ -86,6 +90,7 @@ from typing import Iterator, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..configs.base import ModelConfig
 from ..core import immune
 from ..models import layers, model, transformer
@@ -189,6 +194,17 @@ def _decode_tick(params, cfg: ModelConfig, pool, last, active, table,
             logits if return_logits else None,
             model.chosen_logprob(logits, nxt) if return_logprobs else None,
             topk)
+
+
+def _tick_spans(tr, name: str, t0: float, t_launch: float, t_wait: float,
+                t1: float) -> None:
+    """A decode (or spec) tick's span and its launch, read-back and emit
+    parts, from the tick's clock readings."""
+    tr.begin(name, t=t0)
+    tr.add(name + ".launch", t0, t_launch)
+    tr.add(name + ".wait", t_launch, t_wait)
+    tr.add(name + ".emit", t_wait, t1)
+    tr.end(t=t1)
 
 
 # ---------------------------------------------------------------------------
@@ -437,6 +453,7 @@ class Engine:
         self._group_ready: set = set()
         self._admitted_this_tick = 0
         self._decoding_before_admit = False
+        self._tr: Optional[telemetry.Session] = None    # this step's, or None
 
     def _dev(self, arr, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr), dtype=dtype, device=self.device)
@@ -514,7 +531,12 @@ class Engine:
     def _emit_seed(self, req: ServeRequest, logits, first) -> None:
         """Record the prefill-seeded first token (a resuming request already
         holds it: the re-derived seed is not re-recorded)."""
+        tr = self._tr
+        if tr is not None:
+            tr.begin("prefill.wait")
         tok = int(first[0, 0])
+        if tr is not None:
+            tr.end()
         if req.params.has_penalties:
             self.tok_counts[req.slot, tok] += 1
         if req.out_tokens:
@@ -629,6 +651,9 @@ class Engine:
         req.slot = slot
         if req.admit_tick < 0:
             req.admit_tick = self.tick
+            if self._tr is not None and req.submit_time >= 0:
+                self._tr.add("queue", req.submit_time, time.perf_counter(),
+                             rid=req.rid, root=True)
         if req.preempt_tick >= 0:
             req.requeue_ticks += self.tick - req.preempt_tick
             req.preempt_tick = -1
@@ -650,6 +675,10 @@ class Engine:
                                          total=total, length=plen,
                                          share=self._sharable(req)))
             return True
+        tr = self._tr
+        if tr is not None:
+            tr.begin("prefill", rid=req.rid, tokens=plen)
+            tr.begin("prefill.launch")
         logits, one = _prefill_one(self.params, self.cfg,
                                    req.prompts(self.device),
                                    self.ecfg.max_cache, self.ecfg.attn_backend,
@@ -666,7 +695,11 @@ class Engine:
         self.emitted[slot] = 1
         req.prefill_tokens += plen
         self.prefill_tokens += plen
+        if tr is not None:
+            tr.end()
         self._emit_seed(req, logits, first)
+        if tr is not None:
+            tr.end()
         return True
 
     # -- preemption ----------------------------------------------------------
@@ -912,11 +945,18 @@ class Engine:
             tbl = self.alloc.table()
             for lane, job in enumerate(take):
                 tables[lane] = tbl[job.slot]
+            tr = self._tr
+            if tr is not None:
+                tr.begin("prefill", tokens=sum(
+                    max(0, min(c, len(t.req.tokens) - t.p0)) for t in take))
+                tr.begin("prefill.launch")
             logits_j, self.pool = model.prefill_chunk_multi(
                 self.params, self.cfg, {"tokens": self._dev(toks)}, self.pool,
                 self._dev(tables), self._dev(p0s), self._dev(last_idxs),
                 attn_backend=self.ecfg.attn_backend,
                 router_bias=self.router_bias)
+            if tr is not None:
+                tr.end()
             self.chunked_prefill_chunks += len(take)
             self.prefill_batch_calls += 1
             unfinished = []
@@ -928,6 +968,8 @@ class Engine:
                     unfinished.append(job)
             for job in reversed(unfinished):      # keep front-of-queue order
                 self.jobs.appendleft(job)
+            if tr is not None:
+                tr.end()
             return
         job = self.jobs[0]
         end = job.p0 + c
@@ -945,15 +987,23 @@ class Engine:
             fr[:len(fseg)] = fseg
             chunk["frames"] = self._dev(fr)[None]
         last_idx = min(max(job.length - 1 - job.p0, 0), c - 1)
+        tr = self._tr
+        if tr is not None:
+            tr.begin("prefill", rid=job.req.rid, tokens=len(seg))
+            tr.begin("prefill.launch")
         logits, self.pool = model.prefill_chunk(
             self.params, self.cfg, chunk, self.pool,
             self._table_row(job.slot), job.p0, last_idx, slot=job.slot,
             attn_backend=self.ecfg.attn_backend, router_bias=self.router_bias)
+        if tr is not None:
+            tr.end()
         self.chunked_prefill_chunks += 1
         job.p0 = end
         if end >= job.total:
             self.jobs.popleft()
             self._finish_job(job, logits)
+        if tr is not None:
+            tr.end()
 
     # -- retirement ----------------------------------------------------------
     def _slo(self, req: ServeRequest) -> tuple:
@@ -1032,8 +1082,10 @@ class Engine:
     # -- decode ticks --------------------------------------------------------
     def _plain_step(self, do_sample: bool, use_penalties: bool,
                     want_lp: bool, want_k: int) -> None:
-        """One decode tick: one token for every active slot."""
+        """One decode tick: one token for every active slot. Its two clock
+        readings bound the ``decode`` span and give ``decode_seconds``."""
         t0 = time.perf_counter()
+        tr = self._tr
         counts = self._dev(self.emitted, torch.int64)
         spec = self._pool_spec() if do_sample else self._null_spec
         pen = self._dev(self.tok_counts) if use_penalties else None
@@ -1044,14 +1096,17 @@ class Engine:
             do_sample=do_sample,
             return_logits=self.ecfg.capture_logits, return_logprobs=want_lp,
             use_penalties=use_penalties, return_topk=want_k)
+        if tr is not None:
+            t_launch = time.perf_counter()
         nxt_host = nxt[:, 0].cpu().numpy()
         ok_host = ok.cpu().numpy()
         lg_host = logits[:, -1].cpu().numpy() if logits is not None else None
         lp_host = lps[:, 0].cpu().numpy() if lps is not None else None
         tv_host, ti_host = (topk[0].cpu().numpy(), topk[1].cpu().numpy()) \
             if topk is not None else (None, None)
+        if tr is not None:
+            t_wait = time.perf_counter()
         self.decode_ticks += 1
-        self.decode_seconds += time.perf_counter() - t0
         bad: list[int] = []
         for slot, req in enumerate(self.slots):
             if req is None or not self.active_host[slot] \
@@ -1080,13 +1135,19 @@ class Engine:
         self.pos_host[self.active_host] += 1
         for slot in bad:
             self._retire_corrupted(slot)
+        t1 = time.perf_counter()
+        self.decode_seconds += t1 - t0
+        if tr is not None:
+            _tick_spans(tr, "decode", t0, t_launch, t_wait, t1)
 
     def _spec_step(self) -> None:
         """One self-speculative tick: fused draft+verify, then the host-side
         greedy accept loop. Per lane: accept the longest draft prefix where
         ``d_j == argmax(row j-1)`` plus the bonus token ``argmax(row a)``,
-        stopping early at the request's stop/budget boundary."""
+        stopping early at the request's stop/budget boundary. Its two clock
+        readings bound the ``spec`` span and give ``spec_seconds``."""
         t0 = time.perf_counter()
+        tr = self._tr
         k = self.ecfg.spec_decode
         drafts, am, ok, logits, new_pool = specdec.spec_tick(
             self.params, self.cfg_decode, self.pool, self.last, self.active,
@@ -1095,13 +1156,16 @@ class Engine:
             attn_backend=self.ecfg.attn_backend,
             return_logits=self.ecfg.capture_logits,
             router_bias=self.router_bias)
+        if tr is not None:
+            t_launch = time.perf_counter()
         drafts_h = drafts.cpu().numpy()
         am_h = am.cpu().numpy()
         ok_h = ok.cpu().numpy()
         lg_h = logits.cpu().numpy() if logits is not None else None
         last_h = self.last.cpu().numpy().copy()
+        if tr is not None:
+            t_wait = time.perf_counter()
         self.spec_ticks += 1
-        self.spec_seconds += time.perf_counter() - t0
         bad: list[int] = []
         for slot, req in enumerate(self.slots):
             if req is None or not self.active_host[slot] \
@@ -1139,6 +1203,10 @@ class Engine:
                      "pos": self._dev(self.pos_host, torch.int32)}
         for slot in bad:
             self._retire_corrupted(slot)
+        t1 = time.perf_counter()
+        self.spec_seconds += t1 - t0
+        if tr is not None:
+            _tick_spans(tr, "spec", t0, t_launch, t_wait, t1)
 
     # -- one tick ------------------------------------------------------------
     @torch.no_grad()
@@ -1147,7 +1215,16 @@ class Engine:
         decode one token for every active slot, retire finished sequences,
         advance the immune states. Under no-grad: the model may be one a
         trainer left with gradients on, and the kernels have no backward."""
+        tr = self._tr = telemetry.session()
+        if tr is not None:
+            tr.begin("step", root=True, tick=self.tick,
+                     residents=sum(r is not None for r in self.slots),
+                     queue_len=len(self.queue),
+                     pages_in_use=self.alloc.pages_in_use)
+            tr.begin("admit")
         self._admit()
+        if tr is not None:
+            tr.end()
         self._prefill_tick()
         self.concurrency_hw = max(self.concurrency_hw,
                                   sum(r is not None for r in self.slots))
@@ -1180,6 +1257,8 @@ class Engine:
                 self._spec_step()
             else:
                 self._plain_step(do_sample, use_penalties, want_lp, want_k)
+        if tr is not None:
+            tr.begin("retire")
         self._retire()
         if self.admission is not None:
             demand = np.zeros(self.ecfg.num_classes, np.float64)
@@ -1187,6 +1266,9 @@ class Engine:
                 demand[r.rclass] += 1.0
             self.admission.end_tick(self._admitted_this_tick, len(self.queue),
                                     demand, self._predicted_costs())
+        if tr is not None:
+            tr.end()
+            tr.end()
         self.tick += 1
 
     # -- open-loop serving ---------------------------------------------------

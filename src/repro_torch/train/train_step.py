@@ -10,6 +10,10 @@ state as the JAX package's pytree, which is what a checkpoint stores.
 A step consumes its input state, as the JAX package's jitted step donates
 it: the model's parameters are updated in place, so the returned state
 shares the model with the old one.
+
+Spans (``repro_torch.telemetry``): ``train_step`` reads the tracer's switch
+once; while it records, the step's phases are spans with their device time
+on a card.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import telemetry
 from ..configs.base import ModelConfig, TrainConfig
 from ..core import router as irouter
 from ..dist.checkpoint import flatten, unflatten
@@ -73,14 +78,21 @@ def _stats(out: model_lib.TrainOut) -> dict:
 
 
 def loss_and_grads(model: model_lib.Model, cfg: ModelConfig, batch: dict,
-                   router_bias: Optional[torch.Tensor] = None):
+                   router_bias: Optional[torch.Tensor] = None,
+                   tr: Optional[telemetry.Session] = None):
     """(loss, stats, grads) of one (micro)batch: the detached loss, the
     ``load_frac`` / ``aux`` / ``drop`` stats, and the gradients as the
     leaves of the JAX-layout parameter tree (``param_layout``'s flatten
-    order; stacked leaves stacked), each in its parameter's dtype."""
+    order; stacked leaves stacked), each in its parameter's dtype. ``tr``:
+    the step's session, which records the ``forward`` and ``backward``
+    phases."""
     leaves, _ = flatten(model_lib.param_layout(model, cfg))
     flat = [p for leaf in leaves for p in leaf.params]
+    if tr is not None:
+        tr.phase("forward", flat[0].device)
     out = model_lib.train_loss(model, cfg, batch, router_bias=router_bias)
+    if tr is not None:
+        tr.phase("backward", flat[0].device)
     with layers.under_mesh():       # the backward meets the same constants
         g = iter(torch.autograd.grad(out.loss, flat, allow_unused=True,
                                      materialize_grads=True))
@@ -98,13 +110,16 @@ def train_step(state: TrainState, batch: dict, cfg: ModelConfig,
     accumulated in fp32). Returns (new state, ``Metrics``)."""
     model = state.params
     bias = state.router.bias if state.router is not None else None
+    tr = telemetry.session()
+    if tr is not None:
+        tr.begin("train_step", root=True)
     if tcfg.accum_steps > 1:
         n = tcfg.accum_steps
         size = batch["tokens"].shape[0] // n
         grads = loss = stats = None
         for i in range(n):
             mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            l_i, s_i, g_i = loss_and_grads(model, cfg, mb, bias)
+            l_i, s_i, g_i = loss_and_grads(model, cfg, mb, bias, tr)
             if grads is None:
                 grads = [g.float() for g in g_i]
                 loss, stats = l_i, s_i
@@ -117,8 +132,10 @@ def train_step(state: TrainState, batch: dict, cfg: ModelConfig,
         loss = loss * inv
         stats = {k: v * inv for k, v in stats.items()}
     else:
-        loss, stats, grads = loss_and_grads(model, cfg, batch, bias)
+        loss, stats, grads = loss_and_grads(model, cfg, batch, bias, tr)
 
+    if tr is not None:
+        tr.phase("optimizer", state.step.device)
     leaves, treedef = flatten(model_lib.param_layout(model, cfg))
     with torch.no_grad():
         params = unflatten(treedef, [leaf.value() for leaf in leaves])
@@ -131,9 +148,14 @@ def train_step(state: TrainState, batch: dict, cfg: ModelConfig,
         new_router = state.router
         load_cv = torch.zeros((), device=loss.device)
         if state.router is not None:
+            if tr is not None:
+                tr.phase("router", state.step.device)
             load = stats["load_frac"]                       # (L, E)
             new_router = irouter.update_router_state(state.router, load, rcfg)
             load_cv = irouter.load_cv(load).mean()
+        if tr is not None:
+            tr.phase(None, state.step.device)
+            tr.end()
 
     metrics = Metrics(loss=loss, grad_norm=gnorm,
                       lr=opt.schedule(tcfg, state.step + 1),

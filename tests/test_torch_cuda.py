@@ -813,3 +813,38 @@ def test_host_mesh_and_placement_on_card(card):
         assert torch.equal(got.full_tensor(), want)
     finally:
         layers.set_mesh_axes(None)
+
+
+def test_telemetry_records_under_the_harness_profiler(card):
+    """The benchmark's traced window (``torch.profiler`` over the card's
+    activity alone, one warm-up step, then the active one) turns the
+    tracer on from its active step, and a training step recorded there
+    times its phases on the card."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch import telemetry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import pipeline
+    from repro_torch.train import train_step as ts
+    cfg = configs.get_config("smollm-360m").smoke()
+    tcfg = TrainConfig()
+    state = ts.init_train_state(torch.Generator().manual_seed(0), cfg, tcfg,
+                                device="cuda")
+    batch, _ = pipeline.sample_batch(cfg, 2, 32,
+                                     pipeline.init_data_state("cuda"), seed=1)
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        torch.ones(16, device="cuda").add_(1)          # the warm-up step
+        torch.cuda.synchronize()
+        assert telemetry.session() is None
+        prof.step()
+        assert telemetry.session() is not None
+        state, _ = ts.train_step(state, batch, cfg, tcfg)
+        torch.cuda.synchronize()
+        prof.step()
+    assert telemetry.session() is None
+    s = telemetry.last()
+    (step,) = s.named("train_step")
+    phases = {c.name: s.device_ms(c) for c in s.children(step)}
+    assert set(phases) == {"forward", "backward", "optimizer"}
+    assert all(ms > 0 for ms in phases.values()), phases
