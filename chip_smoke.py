@@ -52,7 +52,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    64 / 8 heads over gemma-7b's lengths, flash at S = 1000 beside SDPA;
    at D = 128 decode and verify (Sq = 5) at qwen3-4b's 32 / 8 heads over
    the same lengths and table, flash at S = 1000 and 383; minicpm-2b's
-   decode (36 / 36, D = 64) and its flash at S = 1000;
+   decode (36 / 36, D = 64) and its flash at S = 1000; training's flash
+   at the training shapes of minicpm-2b (2 x 2,048, 36 / 36 at D = 64)
+   and qwen3-4b (32 / 8 at D = 128): the forward with its log-sum-exp held
+   to ``attention_fwd_ref`` (output rows within ``FLASH_ROW_TOL``, lse
+   within ``FLASH_LSE_TOL``) and timed beside the serving call, the
+   backward held to its plain version on the kernel's output and lse
+   (each gradient's worst row within ``FLASH_BWD_ROW_TOL``) and to the
+   plain chain from the plain forward (each gradient whole within
+   ``FLASH_CHAIN_TOL``), two calls bitwise equal, then timed
+   beside SDPA's backward;
    the grouped matmul at the decode tick's gate / up shape with one tick's
    group sizes and at a 1000-token prefill's (C = 252), and at kimi-k2's
    (384 experts, 7168 x 2048, C = 4 and 28)). No single PyTorch call
@@ -214,8 +223,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    a decode tick a layer of every replica (fallen ones included), flash
    once a one-shot prefill a layer (none: every fleet prompt prefills in
    chunks), nothing else, every bf16 call on ``mma``.
-10. Training (``repro_torch.train``), with no kernel on its path, as none
-   lies on the JAX package's: (c) one train step from one state on one
+10. Training (``repro_torch.train``): attention through the flash kernels
+   (forward with its log-sum-exp, the deterministic backward) in bf16, the
+   torch route in fp32: (c) one
+   train step from one state on one
    batch on the card and on the CPU, fp32 with TF32 off, at the CPU tests'
    smoke sizes (smollm-360m and granite-moe-3b-a800m): ``sample_batch``
    bitwise equal, the loss within 1e-5, every gradient leaf within 1e-5 of
@@ -232,8 +243,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    what it flags is printed), the trainer's checkpoints and restore timed,
    a checkpoint's bytes. (b) granite-moe-3b-a800m at ``MOE_LAYERS``, 6
    ``train_step`` at 4 x 128: every loss and load CV finite, the router
-   bias moved off zero, per-step load CV and drop fraction printed. All
-   five kernel wrappers' launch counts read 0 across the phase.
+   bias moved off zero, per-step load CV and drop fraction printed.
+   Launches, counted from 0 for each run (``train_launches``): A, B, B2 and
+   (b), bf16 at head dim 64, launch the flash forward layers x steps times
+   and its backward layers x steps times, all on ``mma``; (c) (fp32) and
+   the ``--restore`` serving (torch route) none; no serving kernel
+   anywhere.
 
 11. The mesh (``repro_torch.dist.sharding``, ``launch.mesh``,
    ``launch.dryrun``), with no kernel on its path: (a) ``make_host_mesh()``
@@ -313,8 +328,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    128 under a WSD ``TrainConfig`` whose warmup, plateau and decay each
    take a step, AdamW's moments in fp32 (``WSD_STEPS``): losses finite,
    each step's learning rate the CPU's ``optimizer.schedule``, peak
-   memory; one smoke-size fp32 step on the
-   card and on the CPU under WSD, held as phase 10 (c) holds smollm-360m.
+   memory, flash forward and backward 40 x 3 launches on "mma"
+   (``train_launches``); one smoke-size fp32 step on the
+   card and on the CPU under WSD (torch route, no launch), held as phase 10
+   (c) holds smollm-360m.
 
 Phases 3-15 each set every launch count to 0 just before they drive their
 path and read the counts just after. Phases 3, 12, 14 and 15 and every
@@ -352,6 +369,26 @@ TOL = {"paged": {"float32": 1e-5, "bfloat16": 5e-2},
 # are ~1/sqrt(S) ~ 0.03, below the absolute bf16 limit, while one 64-row KV
 # tile dropped from such a row moves this ratio by ~8/sqrt(S) ~ 0.25.
 FLASH_ROW_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the flash backward against its plain version (which repeats its
+# arithmetic in fp32 on the card): the worst row of each gradient by
+# row_rel_err, bf16 outputs and summation order apart. A row's norm is
+# floored at FLASH_BWD_ROW_FLOOR: some gradient rows are zero (the first
+# query's dq), where the kernel's round-off (~1e-8 an entry from N(0, 1)
+# inputs) would divide by nothing
+FLASH_BWD_ROW_TOL, FLASH_BWD_ROW_FLOOR = 2e-2, 1e-2
+# the training forward's log-sum-exp against the plain one, relative to the
+# largest |lse| (at least 1): round-off is ~1e-6 of it, while a row missing
+# one 64-row KV tile of 2,048 moves its lse by ~3e-2
+FLASH_LSE_TOL = 1e-5
+# the backward from the kernel's forward against the plain chain (the plain
+# backward from the plain forward's output and lse), each gradient whole:
+# ||got - plain|| / ||plain||. The two forwards' outputs differ by the
+# kernel's bf16 P (~40% of the output's entries one bf16 step apart), which
+# reaches every gradient through Delta = rowsum(dO o O) and reads ~2e-3,
+# while an lse off by 0.03 reads ~3e-2. Row by row it cannot tell them
+# apart: where a row's attention is nearly one-hot, dP - Delta cancels and
+# that Delta step alone moves dq's row by ~0.06-0.09
+FLASH_CHAIN_TOL = 1e-2
 # Paged decode and verify beside TOL["paged"], the same ratio and limits: a
 # late row over ~1,000 positions has values ~0.03, below the absolute bf16
 # limit, while one split dropped or weighted 1.1x in the merge moves it by
@@ -494,10 +531,11 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def row_rel_err(out, ref) -> float:
-    """The worst row of ``||out - ref|| / ||ref||`` over the last dim."""
+def row_rel_err(out, ref, floor: float = 1e-30) -> float:
+    """The worst row of ``||out - ref|| / max(||ref||, floor)`` over the
+    last dim."""
     o, r = out.float(), ref.float()
-    return ((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)
+    return ((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(floor)
             ).max().item()
 
 
@@ -901,6 +939,106 @@ def time_flash(torch, gen, flash_attention, attention_ref, h=15, hk=5, d=64,
                             "causal": True, "dtype": "bfloat16"}}
     first, *rest = lengths
     return {**res[first], **{f"s{s}": res[s] for s in rest}}
+
+
+def time_flash_bwd(torch, gen, h: int, hk: int, d: int, s: int = 2048,
+                   b: int = 2) -> dict:
+    """Training's flash kernels at a training shape (default minicpm-2b's
+    batch and sequence, 2 x 2,048, bf16, causal). The forward with its
+    log-sum-exp (the instance training runs): its output against
+    ``attention_fwd_ref`` within ``FLASH_ROW_TOL`` and its lse within
+    ``FLASH_LSE_TOL``, then its time (events and device), its bound (q, k, v
+    read, out and lse written once; 4 D flops a kept pair) and the serving
+    call's device time at the same shape (no lse). The backward on the
+    kernel's own output and lse: each gradient's worst row against
+    ``attention_bwd_ref`` on the same inputs within ``FLASH_BWD_ROW_TOL``,
+    and each gradient whole against the plain backward of the plain
+    forward's output and lse (the whole chain) within ``FLASH_CHAIN_TOL``,
+    two calls bitwise equal, then its
+    time (events and device), its bound (the four products, 8 D flops a
+    kept pair; q, k, v, o, do, lse read and dq, dk, dv written once), the
+    plain version's, and SDPA's backward alone on K / V expanded to the q
+    heads (the yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_fwd_ref,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ops import _launch
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v, do = rnd(b, h, s, d), rnd(b, hk, s, d), rnd(b, hk, s, d), \
+        rnd(b, h, s, d)
+    what = f"flash training H={h}/{hk} D={d} S={s}"
+    lse = torch.empty(b, h, s, device="cuda")
+    o = _launch(q, k, v, True, lse)
+    ref_o, ref_lse = attention_fwd_ref(q, k, v)
+    fwd_rel = row_rel_err(o, ref_o)
+    lse_err = (lse - ref_lse).abs().max().item()
+    lse_scale = max(ref_lse.abs().max().item(), 1.0)
+    check(fwd_rel <= FLASH_ROW_TOL["bfloat16"],
+          f"{what}: forward row error {fwd_rel}")
+    check(lse_err <= FLASH_LSE_TOL * lse_scale,
+          f"{what}: lse error {lse_err} (largest |lse| {lse_scale})")
+    fwd_nbytes = (2 * b * h * s * d + 2 * b * hk * s * d) * 2 + 4 * b * h * s
+    fwd_bound, fwd_by = bound(fwd_nbytes, 4 * b * h * d * (s * (s + 1) // 2),
+                              "bfloat16")
+    forward = {
+        "ms": cuda_ms(torch, lambda: _launch(q, k, v, True, lse)),
+        "device_ms": device_ms(torch, lambda: _launch(q, k, v, True, lse)),
+        "serving_device_ms": device_ms(
+            torch, lambda: flash_attention(q, k, v, causal=True)),
+        "bound_ms": fwd_bound, "bound_by": fwd_by,
+        "max_abs_err": (o.float() - ref_o.float()).abs().max().item(),
+        "row_rel_err": fwd_rel, "lse_abs_err": lse_err}
+
+    got = flash_attention_bwd(q, k, v, o, do, lse)
+    again = flash_attention_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"{what}: two backward calls differ")
+    ref = attention_bwd_ref(q, k, v, o, do, lse)
+    errs = [row_rel_err(x, r, FLASH_BWD_ROW_FLOOR) for x, r in zip(got, ref)]
+    check(max(errs) <= FLASH_BWD_ROW_TOL,
+          f"{what}: backward worst rows {errs}")
+    chain = attention_bwd_ref(q, k, v, ref_o, do, ref_lse)
+    chain_errs = [((x.float() - r.float()).norm() / r.float().norm()).item()
+                  for x, r in zip(got, chain)]
+    check(max(chain_errs) <= FLASH_CHAIN_TOL,
+          f"{what}: backward from the kernel's forward against the plain "
+          f"chain, relative errors {chain_errs}")
+    del ref_o, ref_lse, chain
+    ms = cuda_ms(torch, lambda: flash_attention_bwd(q, k, v, o, do, lse))
+    dev_ms = device_ms(torch, lambda: flash_attention_bwd(q, k, v, o, do,
+                                                          lse))
+    plain_ms = cuda_ms(torch, lambda: attention_bwd_ref(q, k, v, o, do, lse),
+                       iters=3, warmup=1)
+    leaves = [q.clone().requires_grad_(),
+              k.repeat_interleave(h // hk, dim=1).requires_grad_(),
+              v.repeat_interleave(h // hk, dim=1).requires_grad_()]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+
+    def sdpa_bwd():
+        torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    lib_ms = cuda_ms(torch, sdpa_bwd)
+    lib_dev_ms = device_ms(torch, sdpa_bwd)
+    nbytes = 2 * (4 * b * h * s * d + 4 * b * hk * s * d) + 4 * b * h * s
+    flops = 8 * b * h * d * (s * (s + 1) // 2)
+    bound_ms, by = bound(nbytes, flops, "bfloat16")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": max(
+                (x.float() - r.float()).abs().max().item()
+                for x, r in zip(got, ref)),
+            "row_rel_err": dict(zip(("dq", "dk", "dv"), errs)),
+            "chain_rel_err": dict(zip(("dq", "dk", "dv"), chain_errs)),
+            "forward": forward,
+            "shape": {"B": b, "H": h, "Hkv": hk, "S": s, "D": d,
+                      "causal": True, "dtype": "bfloat16"}}
 
 
 # (E, C, D, F): granite-moe-3b-a800m's gate/up and down products at decode
@@ -2573,7 +2711,43 @@ MOE_TRAIN_STEPS, MOE_TRAIN_BATCH = 6, 4
 # eps: at 1e-8 a first Adam step is sign(g), which rounding flips on
 # gradient entries at the noise floor
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_STATE_TOL = 1e-5, 1e-5, 5e-5
+# bf16 training on one card runs its attention through the flash kernels,
+# so the bf16 runs of phases 10 and 15 expect their launches; the CPU
+# rehearsals of those phases, which train through the torch route, set it
+# False
+FLASH_TRAINING = True
 TRAIN_PARITY_EPS = 1e-4
+
+
+def train_launches(torch, cfg, steps: int, counters: dict, what: str,
+                   on: bool) -> dict:
+    """The launch check of one training run of ``steps`` steps on ``cfg``
+    (every layer an attention layer), counted from 0 (``reset_train_counts``):
+    ``on`` (a bf16 run on one card, which trains through flash), the
+    forward launches layers x steps times (twice under remat, which reruns
+    the forward in the backward) and the backward layers x steps times,
+    every one on ``mma``; else (the torch route: fp32, serving without
+    prefill) neither; no other kernel launches. Returns the counts."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    fwd = cfg.num_layers * steps * (1 if cfg.remat == "none" else 2)
+    want = {**dict.fromkeys(counters, 0), "flash_attention": fwd if on else 0,
+            "flash_attention_bwd": cfg.num_layers * steps if on else 0}
+    got = {name: fn.launches for name, fn in counters.items()}
+    got["flash_attention_bwd"] = flash_attention_bwd.launches
+    check(got == want, f"{what}: launches {got}, want {want}")
+    mma = {"flash_attention": counters["flash_attention"],
+           "flash_attention_bwd": flash_attention_bwd}
+    for name, fn in mma.items():
+        check(fn.launches_by_path["mma"] == want[name],
+              f"{what}: {name} by body {fn.launches_by_path}, want every "
+              f"launch on mma")
+    return got
+
+
+def reset_train_counts(counters: dict) -> None:
+    """``reset_counts`` of ``counters`` and of the flash backward."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    reset_counts({**counters, "flash_attention_bwd": flash_attention_bwd})
 
 
 def leaf_rel_err(torch, a, b) -> float:
@@ -2640,7 +2814,7 @@ def train_phase(torch, configs, seed: int, counters: dict) -> dict:
     from A's checkpoint, token-equal to A's model served from memory; one
     step profiled, a checkpoint timed. (b) granite-moe-3b-a800m at
     ``MOE_LAYERS``: ``train_step`` with the immune router's regulation.
-    (c) card vs CPU in fp32. No kernel launches anywhere in the phase."""
+    (c) card vs CPU in fp32. Each run's launches by ``train_launches``."""
     import tempfile
     import warnings
     from repro_torch import prng
@@ -2652,9 +2826,12 @@ def train_phase(torch, configs, seed: int, counters: dict) -> dict:
     from repro_torch.serve import decode
     from repro_torch.train import train_step as ts
     from repro_torch.train.trainer import Trainer
-    reset_counts(counters)
+    reset_train_counts(counters)
     rep = {"parity_fp32": {arch: card_vs_cpu(torch, configs, arch, seed)
                            for arch in ("smollm-360m", MOE_ARCH)}}
+    launches = {"parity_fp32": train_launches(
+        torch, configs.get_config("smollm-360m").smoke(), 0, counters,
+        "10c fp32 parity", on=False)}
 
     # -- 10a ------------------------------------------------------------------
     cfg = configs.get_config("smollm-360m")
@@ -2692,21 +2869,32 @@ def train_phase(torch, configs, seed: int, counters: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         # the uninterrupted run checkpoints only at its end
+        reset_train_counts(counters)
         tr_a = trainer("a", ckpt_every=TRAIN_STEPS)
         state_a = tr_a.train(TRAIN_STEPS)
         torch.cuda.synchronize()
         wall_a = time.perf_counter() - t0
+        launches["run_a"] = train_launches(
+            torch, cfg, TRAIN_STEPS, counters, "10a run A", on=FLASH_TRAINING)
         losses = [h["loss"] for h in tr_a.history]
         check(all(np.isfinite(losses)) and losses[-1] < losses[0],
               f"smollm-360m loss did not fall: {losses}")
+        reset_train_counts(counters)
         try:
             trainer("b", ckpt_every=TRAIN_CKPT_EVERY,
                     failure_at=TRAIN_FAILURE_AT).train(TRAIN_STEPS)
             fail("the injected failure did not fire")
         except RuntimeError as e:
             check("injected node failure" in str(e), f"run B raised {e!r}")
+        launches["run_b"] = train_launches(
+            torch, cfg, TRAIN_FAILURE_AT, counters, "10a run B",
+            on=FLASH_TRAINING)
+        reset_train_counts(counters)
         tr_b2 = trainer("b", ckpt_every=TRAIN_CKPT_EVERY)
         state_b2 = tr_b2.train(TRAIN_STEPS)
+        launches["run_b2"] = train_launches(
+            torch, cfg, TRAIN_STEPS - TRAIN_CKPT_EVERY, counters, "10a run B2",
+            on=FLASH_TRAINING)
         check(tr_b2.history[0]["step"] == TRAIN_CKPT_EVERY,
               f"run B2 resumed at step {tr_b2.history[0]['step']}")
         la, _ = ckpt.flatten(ts.state_tree(state_a, cfg))
@@ -2719,7 +2907,8 @@ def train_phase(torch, configs, seed: int, counters: dict) -> dict:
         nbytes = dir_bytes(os.path.join(work, "a", f"step_{TRAIN_STEPS:08d}"))
         del state_b2, tr_b2, la, lb
 
-        # serve the checkpoint (torch route: no kernel in this phase)
+        # serve the checkpoint (torch route: no kernel launches)
+        reset_train_counts(counters)
         argv = ["--arch", "smollm-360m", "--device", "cuda", "--batch", "2",
                 "--steps", "8", "--attn-backend", "torch", "--restore",
                 os.path.join(work, "a")]
@@ -2735,6 +2924,8 @@ def train_phase(torch, configs, seed: int, counters: dict) -> dict:
         check(torch.equal(served, mem.cpu()),
               f"--restore tokens {served.tolist()} != from memory "
               f"{mem.tolist()}")
+        launches["restore"] = train_launches(torch, cfg, 0, counters,
+                                             "10a serve --restore", on=False)
 
         # where a step's time goes, and one checkpoint's
         data = pipeline.DataState(step=torch.tensor(
@@ -2790,6 +2981,7 @@ def train_phase(torch, configs, seed: int, counters: dict) -> dict:
         device="cuda")
     data = pipeline.init_data_state("cuda")
     steps = []
+    reset_train_counts(counters)
     for _ in range(MOE_TRAIN_STEPS):
         batch, data = pipeline.sample_batch(mcfg, MOE_TRAIN_BATCH, TRAIN_SEQ,
                                             data)
@@ -2811,11 +3003,11 @@ def train_phase(torch, configs, seed: int, counters: dict) -> dict:
         "seq": TRAIN_SEQ, "steps": steps, "router_bias_max_abs": bias_abs,
         "router_steps": int(state.router.steps[0]),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    launches[MOE_ARCH] = train_launches(torch, mcfg, MOE_TRAIN_STEPS,
+                                        counters, "10b", on=FLASH_TRAINING)
     del state
     torch.cuda.empty_cache()
-    n = {name: fn.launches for name, fn in counters.items()}
-    check(not any(n.values()), f"phase 10 launched kernels: {n}")
-    rep["launches"] = n
+    rep["launches"] = launches
     return rep
 
 
@@ -3624,10 +3816,10 @@ def minicpm_phase(torch, configs, eng_mod, traces, model_lib, api,
     windows of ten decode ticks and one 1,000-token prefill. (b) Three
     ``train_step`` calls at 4 x 128 under ``wsd_config`` (warmup, stable
     and decay each a step; fp32 moments): losses finite, each step's
-    learning rate the CPU's ``optimizer.schedule``, peak memory; then one
+    learning rate the CPU's ``optimizer.schedule``, peak memory, flash
+    forward and backward launches by ``train_launches``; then one
     smoke-size fp32 step on the card and on the CPU (``card_vs_cpu``, the
-    WSD schedule).
-    No kernel launches in (b)."""
+    WSD schedule), which launches nothing."""
     from repro_torch.data import pipeline
     from repro_torch.dist.checkpoint import flatten
     from repro_torch.train import optimizer as opt
@@ -3671,7 +3863,7 @@ def minicpm_phase(torch, configs, eng_mod, traces, model_lib, api,
 
     # -- 15b: training under WSD --------------------------------------------
     t1 = time.perf_counter()
-    reset_counts(counters)
+    reset_train_counts(counters)
     tcfg = wsd_config(seed)
     torch.cuda.reset_peak_memory_stats()
     state = ts.init_train_state(
@@ -3702,14 +3894,19 @@ def minicpm_phase(torch, configs, eng_mod, traces, model_lib, api,
                     "schedule": dataclasses.asdict(tcfg),
                     "moments": str(flatten(state.opt.mu)[0][0].dtype),
                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                    "train_s": time.perf_counter() - t1}
+                    "train_s": time.perf_counter() - t1,
+                    "launches": train_launches(
+                        torch, cfg, WSD_STEPS, counters, "15b",
+                        on=FLASH_TRAINING)}
     del state, batch, data
     gc.collect()
     torch.cuda.empty_cache()
+    reset_train_counts(counters)
     rep["parity_fp32"] = card_vs_cpu(torch, configs, MINICPM_ARCH, seed,
                                      schedule="wsd")
-    n = {name: fn.launches for name, fn in counters.items()}
-    check(not any(n.values()), f"phase 15 training launched kernels: {n}")
+    rep["parity_fp32"]["launches"] = train_launches(
+        torch, configs.get_config(MINICPM_ARCH).smoke(), 0, counters,
+        "15b fp32 parity", on=False)
     rep["phase_s"] = time.perf_counter() - t0
     return rep
 
@@ -3829,6 +4026,10 @@ def main() -> int:
                             **MINICPM_DECODE)
     flash_mc_t = time_flash(torch, gen, flash_attention, attention_ref, h=36,
                             hk=36, d=64, lengths=(1000,))
+    # the flash backward at the training shapes of minicpm-2b (its
+    # benchmark cell, 2 x 2,048) and qwen3-4b (GQA 32 / 8 at D = 128)
+    flash_bwd_t = {"minicpm": time_flash_bwd(torch, gen, 36, 36, 64),
+                   "qwen3": time_flash_bwd(torch, gen, 32, 8, 128)}
     gmm_t = time_gmm(torch, gen, moe_gmm, gmm_ref)
     print("kernel timing shapes: " + json.dumps(
         {"paged_attention": paged_t["shape"],
@@ -3849,6 +4050,7 @@ def main() -> int:
                                   flash128_t["s383"]["shape"]],
          "paged_attention_minicpm": paged_mc_t["shape"],
          "flash_attention_minicpm": flash_mc_t["shape"],
+         "flash_attention_bwd": [t["shape"] for t in flash_bwd_t.values()],
          "moe_gmm": [gmm_t["shape"]] + [gmm_t[k]["shape"] for k in (
              "prefill", "kimi", "kimi_prefill")]}))
     print("paged kernels beside SDPA on the same live K / V, gathered and "
@@ -4129,6 +4331,16 @@ def main() -> int:
          "d128_s383": {k: flash128_t["s383"][k] for k in LIB_TIMED},
          "minicpm": {k: flash_mc_t[k] for k in LIB_TIMED},
          **later("flash_attention")},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "none (the TPU kernel has no backward)",
+         **{k: flash_bwd_t["minicpm"][k] for k in LIB_TIMED},
+         **{k: flash_bwd_t["minicpm"][k] for k in (
+             "row_rel_err", "chain_rel_err", "forward")},
+         "qwen3": {k: flash_bwd_t["qwen3"][k] for k in LIB_TIMED + (
+             "row_rel_err", "chain_rel_err", "forward")},
+         "phase10_launches": train_rep["launches"],
+         "phase15_launches": minicpm_rep["train"]["launches"]},
         {"name": "moe_gmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
          "replaces": "src/repro/kernels/moe_gmm/kernel.py:45",

@@ -43,8 +43,10 @@ SIGNATURES = {
                               _I, _I, _I, _I, _I, _P, _IP],
     "repro_paged_attention_verify": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _I, _I, _I, _I, _I, _I, _P, _IP],
-    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                              _IP],
+    "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _P, _IP],
+    "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _I, _I, _I, _I, _P, _IP],
     "repro_moe_gmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _IP],
     "repro_grid_step": [_P, _P, _P, _I, _I, _I, _P, _IP],
 }
@@ -120,12 +122,15 @@ def library() -> ctypes.CDLL:
 
 
 def check_no_grad(name: str, *tensors) -> None:
-    """Raise if autograd would record a call on ``tensors``. The kernels
-    have no backward (nor have the TPU kernels they replace): under grad
-    mode an input that requires grad would get an output with no
-    ``grad_fn``, and its gradient would be cut without a word. The check is
-    the same on CPU tensors, whose plain versions could differentiate, so a
-    CPU run fails where the card would."""
+    """Raise if autograd would record a call on ``tensors``. The serving
+    wrappers (paged decode and verify, flash, the grouped matmul) have no
+    backward (nor have the TPU kernels they replace): under grad mode an
+    input that requires grad would get an output with no ``grad_fn``, and
+    its gradient would be cut without a word. Training's attention goes
+    through ``flash_attention.flash_attention_train`` instead, whose
+    autograd Function has the backward kernels. The check is the same on
+    CPU tensors, whose plain versions could differentiate, so a CPU run
+    fails where the card would."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: the kernel has no backward; call it "
                            f"under torch.no_grad() or on inputs that do not "

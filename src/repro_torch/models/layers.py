@@ -33,7 +33,8 @@ from torch.distributed.tensor.experimental import (implicit_replication,
                                                   local_map)
 
 from ..configs.base import ModelConfig
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import flash_attention, flash_attention_train
+from ..kernels.flash_attention.ops import BWD_HEAD_DIMS
 from ..kernels.paged_attention import paged_attention, paged_attention_verify
 
 BACKENDS = ("kernel", "torch")
@@ -435,6 +436,16 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig, window: Optional[int] = None,
 _CHUNK_THRESHOLD = 2048  # the torch backend's chunked path beyond this
 
 
+def _flash(fn, q, k, v) -> torch.Tensor:
+    """``fn`` (``flash_attention``, or ``flash_attention_train`` for
+    autograd), causal, on q: (B, S, H, D), k, v: (B, S, Hkv, D) in the
+    kernels' (B, H, S, D) layout; returns (B, S, H * D)."""
+    b, s, h, hd = q.shape
+    out = fn(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+             v.transpose(1, 2).contiguous())
+    return out.transpose(1, 2).reshape(b, s, h * hd)
+
+
 def _sdpa_dispatch(q, k, v, cfg: ModelConfig, backend: str,
                    window: Optional[int] = None,
                    prefix_len: Optional[int] = None) -> torch.Tensor:
@@ -445,12 +456,9 @@ def _sdpa_dispatch(q, k, v, cfg: ModelConfig, backend: str,
     either backend. ``"torch"`` is the XLA-path mirror (``_sdpa`` /
     ``_sdpa_chunked``)."""
     check_backend(backend)
-    b, s, h, hd = q.shape
+    s = q.shape[1]
     if backend == "kernel" and window is None and prefix_len is None:
-        out = flash_attention(q.transpose(1, 2).contiguous(),
-                              k.transpose(1, 2).contiguous(),
-                              v.transpose(1, 2).contiguous(), causal=True)
-        return out.transpose(1, 2).reshape(b, s, h * hd)
+        return _flash(flash_attention, q, k, v)
     if s > _CHUNK_THRESHOLD:
         return _sdpa_chunked(q, k, v, cfg, window, prefix_len)
     return _sdpa(q, k, v, causal_mask(s, s, window, prefix_len,
@@ -502,18 +510,37 @@ def masked_copy_(dst: torch.Tensor, src: torch.Tensor,
     return write_cache_(dst, put, (src,), (active,))
 
 
+def flash_trains(device_type: str, dtype: torch.dtype, head_dim: int,
+                 window: Optional[int], prefix_len: Optional[int],
+                 distributed: bool) -> bool:
+    """Whether training attention on q of this kind runs through the flash
+    kernels (``flash_attention_train``: the forward with its log-sum-exp
+    and the deterministic backward): a CUDA tensor that is not a DTensor,
+    bf16, a head dim of the backward (``BWD_HEAD_DIMS``), the mask plainly
+    causal. Everything else takes the torch route."""
+    return (device_type == "cuda" and not distributed
+            and dtype == torch.bfloat16 and head_dim in BWD_HEAD_DIMS
+            and window is None and prefix_len is None)
+
+
 def attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
               window: Optional[int] = None,
               prefix_len: Optional[int] = None) -> torch.Tensor:
     """Full-sequence (training) attention: causal, optionally sliding-window
-    and / or prefix-LM. It runs the torch route (``_sdpa`` /
-    ``_sdpa_chunked``), as the JAX package trains through XLA: the flash
-    kernel has no backward."""
+    and / or prefix-LM. Where ``flash_trains`` says so (bf16 on one card at
+    head dim 64 or 128, plainly causal) it runs the flash kernels forward
+    and backward; elsewhere the torch route (``_sdpa`` / ``_sdpa_chunked``),
+    as the JAX package trains through XLA: the CPU, a mesh's DTensors, fp32,
+    other head dims, sliding windows and prefix-LM."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _qkv(params, x, cfg, positions)
-    return _sdpa_dispatch(q, k, v, cfg, "torch", window, prefix_len) \
-        @ params.wo
+    if flash_trains(q.device.type, q.dtype, q.shape[-1], window, prefix_len,
+                    isinstance(q, DTensor)):
+        out = _flash(flash_attention_train, q, k, v)
+    else:
+        out = _sdpa_dispatch(q, k, v, cfg, "torch", window, prefix_len)
+    return out @ params.wo
 
 
 def attention_prefill(params: Attention, x: torch.Tensor, cfg: ModelConfig,

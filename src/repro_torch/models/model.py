@@ -288,8 +288,10 @@ def train_loss(params: Model, cfg: ModelConfig, batch: dict,
     VLM's patch prefix carries no labels), plus ``aux_loss_coef`` times the
     Switch aux loss for an MoE in ``router_mode == "aux"``. The target
     logit is gathered, where the JAX package contracts a (B, S, V) one-hot.
-    It runs the torch route, and takes no ``backend``: the kernels have no
-    backward."""
+    It takes no ``backend``: attention runs the flash kernels forward and
+    backward where ``layers.flash_trains`` says so (bf16 on one card, head
+    dim 64 or 128, plainly causal) and the torch route elsewhere; the
+    serving kernels have no backward."""
     tokens = batch["tokens"]
     x, plen = _inputs(params, cfg, batch)
     x, load, aux, drop = transformer.apply_stack(

@@ -127,9 +127,10 @@ def _row(bias, li: int):
 
 def apply_block(blk: Block, x, cfg: ModelConfig, bias=None,
                 prefix_len: Optional[int] = None):
-    """Full-sequence (training) block on the torch route: no kernel lies on
-    it, as none lies on the JAX package's training path. Returns (x, the
-    MoE's ``MoEStats`` or None)."""
+    """Full-sequence (training) block. Attention runs the flash kernels
+    where ``layers.flash_trains`` says so, else the torch route; the MoE's
+    expert products run the torch route, as the JAX package trains through
+    XLA. Returns (x, the MoE's ``MoEStats`` or None)."""
     x = layers.constrain(x, layers.DP, None, None)
     h = rmsnorm(blk.norm1, x, cfg)
     if blk.kind == "ssm":

@@ -1214,7 +1214,8 @@ class Engine:
         """One engine tick: admit into free slots, land a prefill chunk,
         decode one token for every active slot, retire finished sequences,
         advance the immune states. Under no-grad: the model may be one a
-        trainer left with gradients on, and the kernels have no backward."""
+        trainer left with gradients on, and the serving kernels have no
+        backward."""
         tr = self._tr = telemetry.session()
         if tr is not None:
             tr.begin("step", root=True, tick=self.tick,

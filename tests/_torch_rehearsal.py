@@ -25,6 +25,7 @@ def chip_smoke_on_cpu(monkeypatch) -> dict:
     cs = {"__name__": "chip_smoke_on_cpu",
           "__file__": str(ROOT / "chip_smoke.py")}
     exec(compile(src, str(ROOT / "chip_smoke.py"), "exec"), cs)
+    cs["FLASH_TRAINING"] = False     # the CPU trains through the torch route
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)

@@ -4,8 +4,10 @@ grid step), the verify kernel at Sq = 1 against the decode kernel, the
 engine (plain and speculative, dense and MoE) on the card against its own
 one-shot oracle, a fleet under a crash against its fault-free run, a warm
 snapshot's K/V round trip, the VLSI extraction on the card against the
-port's CPU run, the wrappers' refusal of inputs that require grad, and a
-killed training run resuming bitwise on the card.
+port's CPU run, the wrappers' refusal of inputs that require grad, a
+killed training run resuming bitwise on the card, and training through the
+flash kernels (the backward against its plain version, bitwise repeatable,
+a train step's gradients against the torch route).
 
 Marked ``cuda``; each test decides inside itself whether a card is visible
 and skips otherwise (never at import time). This file imports no JAX, so it
@@ -26,7 +28,12 @@ from repro_torch.core.vlsi import extractor, layout, reference
 from repro_torch.kernels import flash_attention as flash_pkg
 from repro_torch.kernels import moe_gmm as gmm_pkg
 from repro_torch.kernels import paged_attention as paged_pkg
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                 attention_fwd_ref,
+                                                 attention_ref,
+                                                 flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_train)
 from repro_torch.kernels import grid_step as grid_pkg
 from repro_torch.kernels.grid_step import (grid_step, grid_step_planes,
                                            grid_step_planes_ref,
@@ -61,9 +68,9 @@ ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 PAGED_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 
 
-def _row_rel_err(out, ref):
+def _row_rel_err(out, ref, floor=1e-30):
     o, r = out.float(), ref.float()
-    return ((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-30)
+    return ((o - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(floor)
             ).max().item()
 
 
@@ -707,7 +714,8 @@ def test_scheduler_on_card_matches_cpu(card):
 
 
 # ---------------------------------------------------------------------------
-# the kernels have no backward; training runs without them
+# the serving kernels have no backward; training runs without them, but for
+# attention, which trains through the flash backward in bf16
 # ---------------------------------------------------------------------------
 def _wrapper_calls(device, requires_grad: bool) -> dict:
     """One call of each kernel wrapper at a small shape, the float inputs
@@ -848,3 +856,148 @@ def test_telemetry_records_under_the_harness_profiler(card):
     phases = {c.name: s.device_ms(c) for c in s.children(step)}
     assert set(phases) == {"forward", "backward", "optimizer"}
     assert all(ms > 0 for ms in phases.values()), phases
+
+
+# ---------------------------------------------------------------------------
+# training through flash: the forward with its lse and the backward
+# ---------------------------------------------------------------------------
+# minicpm-2b's training shape (its benchmark cell) and qwen3-4b's heads, then
+# ragged tails and a GQA group of 3 at both head dims
+BWD_SHAPES = [(2, 36, 36, 2048, 64), (2, 32, 8, 1000, 128), (1, 4, 4, 1, 64),
+              (1, 4, 4, 65, 64), (2, 8, 2, 383, 128), (1, 6, 2, 200, 64),
+              (2, 24, 8, 513, 64)]
+
+
+# a gradient row's norm is floored here (chip_smoke.py's
+# FLASH_BWD_ROW_FLOOR): the first query's dq row is zero, where the
+# kernel's round-off would divide by nothing
+BWD_ROW_FLOOR = 1e-2
+
+
+def _bwd_inputs(card, b, h, hk, s, d, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed + 7 * s + d + h)
+
+    def t(*shape):
+        return torch.randn(*shape, generator=g, device=card).bfloat16()
+
+    return t(b, h, s, d), t(b, hk, s, d), t(b, hk, s, d), t(b, h, s, d)
+
+
+@pytest.mark.parametrize("b,h,hk,s,d", BWD_SHAPES)
+def test_flash_train_kernels_match_plain(card, b, h, hk, s, d):
+    """Through the autograd Function: the forward's output and lse against
+    ``attention_fwd_ref``, each gradient's worst row against
+    ``attention_bwd_ref`` on the same output and lse (ROW_TOL's bf16
+    limit, chip_smoke.py's FLASH_BWD_ROW_TOL), one launch of each on
+    ``mma``."""
+    q, k, v, do = _bwd_inputs(card, b, h, hk, s, d)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    fm = flash_attention.launches_by_path["mma"]
+    bm = flash_attention_bwd.launches_by_path["mma"]
+    out = flash_attention_train(*leaves)
+    lse = out.grad_fn.saved_tensors[4]
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == \
+        (f0 + 1, b0 + 1)
+    assert flash_attention.launches_by_path["mma"] == fm + 1
+    assert flash_attention_bwd.launches_by_path["mma"] == bm + 1
+    ref_out, ref_lse = attention_fwd_ref(q, k, v)
+    assert _row_rel_err(out.detach(), ref_out) <= ROW_TOL[torch.bfloat16]
+    assert (lse - ref_lse).abs().max().item() <= 1e-5 * max(
+        ref_lse.abs().max().item(), 1.0)
+    plain = attention_bwd_ref(q, k, v, out.detach(), do, lse)
+    for got, want in zip(grads, plain, strict=True):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert torch.isfinite(got).all()
+        assert _row_rel_err(got, want, BWD_ROW_FLOOR) <= \
+            ROW_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("b,h,hk,s,d", BWD_SHAPES[:2])
+def test_flash_bwd_is_bitwise_repeatable(card, b, h, hk, s, d):
+    """No atomics: two calls give the same bits."""
+    q, k, v, do = _bwd_inputs(card, b, h, hk, s, d, seed=1)
+    lse = torch.empty(b, h, s, device=card)
+    out = flash_pkg.ops._launch(q, k, v, True, lse)
+    first = flash_attention_bwd(q, k, v, out, do, lse)
+    for _ in range(2):
+        again = flash_attention_bwd(q, k, v, out, do, lse)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_flash_train_refuses_fp32_on_the_card(card):
+    q = torch.randn(1, 4, 9, 64, device=card)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention_train(q, q, q)
+
+
+# a gradient leaf through flash against the torch route, both bf16, as
+# ||flash - torch|| / ||torch||: the torch route rounds S, P and its
+# einsums' outputs to bf16, the kernels P and dS alone
+TRAIN_GRAD_REL = 5e-2
+
+
+def test_train_step_through_flash_matches_the_torch_route(card, monkeypatch):
+    """A 2-layer bf16 minicpm-2b smoke model at head dim 64 (MHA 4 / 4),
+    one 4 x 128 batch: its gradients (``loss_and_grads``) through flash
+    match the torch route's within TRAIN_GRAD_REL, leaf by leaf, the loss
+    within 1e-2 of itself; one ``train_step`` launches the flash forward
+    and backward once a layer."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import pipeline
+    from repro_torch.models import layers
+    from repro_torch.train import train_step as ts
+    cfg = dataclasses.replace(configs.get_config("minicpm-2b").smoke(),
+                              dtype="bfloat16", head_dim=64)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=0, decay_steps=10)
+    state = ts.init_train_state(torch.Generator(device=card).manual_seed(5),
+                                cfg, tcfg, device=card)
+    batch, _ = pipeline.sample_batch(cfg, 4, 128,
+                                     pipeline.init_data_state(card))
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    loss_f, _, grads_f = ts.loss_and_grads(state.params, cfg, batch)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - f0, flash_attention_bwd.launches - b0) \
+        == (cfg.num_layers, cfg.num_layers)
+    with monkeypatch.context() as m:
+        m.setattr(layers, "flash_trains", lambda *a: False)
+        loss_t, _, grads_t = ts.loss_and_grads(state.params, cfg, batch)
+    assert abs(float(loss_f) - float(loss_t)) <= 1e-2 * abs(float(loss_t))
+    for a, b in zip(grads_f, grads_t, strict=True):
+        rel = (a.float() - b.float()).norm() / b.float().norm().clamp_min(
+            1e-30)
+        assert rel.item() <= TRAIN_GRAD_REL
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    state, met = ts.train_step(state, batch, cfg, tcfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(met.loss)
+    assert (flash_attention.launches - f0, flash_attention_bwd.launches - b0) \
+        == (cfg.num_layers, cfg.num_layers)
+
+
+def test_trainer_through_flash_resumes_bitwise(card, tmp_path):
+    """A killed bf16 run whose attention trains through flash resumes
+    bitwise on the card: the backward is deterministic."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer
+    cfg = dataclasses.replace(configs.get_config("smollm-360m").smoke(),
+                              dtype="bfloat16", head_dim=64)
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=2, decay_steps=100)
+    b0 = flash_attention_bwd.launches
+
+    def mk(sub, **kw):
+        return Trainer(cfg=cfg, tcfg=tcfg, workdir=str(tmp_path / sub),
+                       batch=4, seq=64, ckpt_every=4, device="cuda", **kw)
+
+    state_a = mk("a").train(10)
+    with pytest.raises(RuntimeError, match="injected node failure"):
+        mk("b", failure_at=6).train(10)
+    state_b = mk("b").train(10)
+    assert flash_attention_bwd.launches - b0 == cfg.num_layers * (10 + 6 + 6)
+    la, _ = ckpt.flatten(ts.state_tree(state_a, cfg))
+    lb, _ = ckpt.flatten(ts.state_tree(state_b, cfg))
+    assert all(torch.equal(a, b) for a, b in zip(la, lb, strict=True))
