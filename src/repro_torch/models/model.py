@@ -51,6 +51,7 @@ class TrainOut(NamedTuple):
     load_frac: Optional[torch.Tensor]  # (L, E) per-layer expert load
     drop_frac: torch.Tensor
     logits_mean_abs: torch.Tensor      # cheap NaN / scale canary
+    fill: torch.Tensor                 # expert buffer rows in use (0 unless MoE)
 
 
 class Model(nn.Module):
@@ -283,7 +284,8 @@ def _meshed(fn):
 
 @_meshed
 def train_loss(params: Model, cfg: ModelConfig, batch: dict,
-               router_bias: Optional[torch.Tensor] = None) -> TrainOut:
+               router_bias: Optional[torch.Tensor] = None,
+               tr=None) -> TrainOut:
     """Next-token cross-entropy in fp32 over ``batch["tokens"]`` (B, S) (the
     VLM's patch prefix carries no labels), plus ``aux_loss_coef`` times the
     Switch aux loss for an MoE in ``router_mode == "aux"``. The target
@@ -291,11 +293,13 @@ def train_loss(params: Model, cfg: ModelConfig, batch: dict,
     It takes no ``backend``: attention runs the flash kernels forward and
     backward where ``layers.flash_trains`` says so (bf16 on one card, head
     dim 64 or 128, plainly causal) and the torch route elsewhere; the
-    serving kernels have no backward."""
+    serving kernels have no backward. ``tr``: the training step's
+    ``telemetry`` session, for the expert layers' spans."""
     tokens = batch["tokens"]
     x, plen = _inputs(params, cfg, batch)
-    x, load, aux, drop = transformer.apply_stack(
-        params.blocks, x, cfg, bias=router_bias, prefix_len=plen or None)
+    x, load, aux, drop, fill = transformer.apply_stack(
+        params.blocks, x, cfg, bias=router_bias, prefix_len=plen or None,
+        tr=tr)
     if plen:
         x = x[:, plen:]
     lg = _head(params, cfg, x)[:, :-1]                  # (B, S-1, V) fp32
@@ -305,7 +309,7 @@ def train_loss(params: Model, cfg: ModelConfig, batch: dict,
     if cfg.router_mode == "aux" and cfg.num_experts:
         loss = loss + cfg.aux_loss_coef * aux
     return TrainOut(loss=loss, aux_loss=aux, load_frac=load, drop_frac=drop,
-                    logits_mean_abs=lg.detach().abs().mean())
+                    logits_mean_abs=lg.detach().abs().mean(), fill=fill)
 
 
 def penalize_logits(lg: torch.Tensor, spec: SamplingSpec,

@@ -15,11 +15,16 @@ version on CPU tensors) with each expert's live row count as its group size;
 Nothing on this path reads a device value back to the host: counts are a
 scatter-add, the grid of the grouped matmul is fixed by the shapes and its
 group sizes stay on the device.
+
+Spans (``repro_torch.telemetry``): given the training step's session, a
+layer run inside its ``forward`` phase records a ``moe`` span with the four
+stages as phases (``moe.route``, ``moe.dispatch``, ``moe.experts``,
+``moe.combine``); remat's recompute, inside ``backward``, records none.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +32,7 @@ from torch import nn
 from torch.distributed.tensor import Replicate
 from torch.distributed.tensor.experimental import local_map
 
+from .. import telemetry
 from ..configs.base import ModelConfig
 from ..core import router as irouter
 from ..kernels.moe_gmm import moe_gmm
@@ -58,6 +64,8 @@ class MoEStats(NamedTuple):
     load_frac: torch.Tensor     # (E,) observed load fractions
     aux_loss: torch.Tensor      # () Switch aux loss (router_mode == 'aux')
     drop_frac: torch.Tensor     # () fraction of assignments dropped
+    fill: torch.Tensor          # () share of the (G, E, C) buffer's rows
+    #                             holding an assignment
 
 
 def capacity(cfg: ModelConfig, tokens: int) -> int:
@@ -73,7 +81,7 @@ def _dispatch(tok: torch.Tensor, idx: torch.Tensor, e: int, c: int):
     keep (T*k,), sizes (E,) int32) with ``slot_loc`` in unsorted (token-major)
     order and ``sizes`` each expert's live buffer rows (``min(count, C)``) —
     the grouped matmul's group sizes."""
-    t, d = tok.shape
+    t = tok.shape[0]
     k = idx.shape[-1]
     dev = tok.device
     flat_e = idx.reshape(-1)                                     # (T*k,)
@@ -93,11 +101,13 @@ def _dispatch(tok: torch.Tensor, idx: torch.Tensor, e: int, c: int):
     cols = torch.arange(c, device=dev)[None, :]
     sorted_pos = starts[rows] + cols                             # (E, C)
     valid = cols < torch.clamp(counts[rows], max=c)
+    # padding rows read a token each, spread over the tokens, and are
+    # zeroed: the gather's backward (a sorted, deterministic accumulate)
+    # then meets a few repeats of an index, not every padding row's on one
     src_tok = torch.where(valid,
                           token_id[order[sorted_pos.clamp(0, n - 1)]],
-                          torch.full_like(sorted_pos, t))        # pad row
-    tok_pad = torch.cat([tok, tok.new_zeros((1, d))], 0)
-    expert_in = tok_pad[src_tok]                                 # (E, C, D)
+                          (rows * c + cols) % t)
+    expert_in = torch.where(valid[..., None], tok[src_tok], 0)  # (E, C, D)
 
     # per-slot buffer location in unsorted order (for the combine gather)
     rank_unsorted = (torch.arange(n, device=dev) - starts[sorted_e])[inv_order]
@@ -110,12 +120,15 @@ def _dispatch(tok: torch.Tensor, idx: torch.Tensor, e: int, c: int):
 
 def _combine(out: torch.Tensor, slot_loc: torch.Tensor, gates: torch.Tensor,
              keep: torch.Tensor, t: int) -> torch.Tensor:
-    """Gather-only combine: y[t] = sum_k gate * out[slot_loc[t, k]]; the
-    weighting runs in the output's dtype."""
+    """Gather-only combine: y[t] = sum_k gate * out[slot_loc[t, k]], a
+    dropped slot adding zero; the weighting runs in the output's dtype.
+    Dropped slots read rows spread over the buffer, zeroed, so the gather's
+    backward meets no run of one repeated index."""
     e, c, d = out.shape
     k = gates.shape[-1]
-    out_flat = torch.cat([out.reshape(e * c, d), out.new_zeros((1, d))], 0)
-    slot_out = out_flat[slot_loc].reshape(t, k, d)
+    spread = torch.arange(slot_loc.shape[0], device=slot_loc.device) % (e * c)
+    rows = out.reshape(e * c, d)[torch.where(keep, slot_loc, spread)]
+    slot_out = torch.where(keep[:, None], rows, 0).reshape(t, k, d)
     w = (gates * keep.reshape(t, k)).to(out.dtype)
     return torch.einsum("tkd,tk->td", slot_out, w)
 
@@ -140,14 +153,21 @@ def _experts(params: MoE, expert_in: torch.Tensor, sizes: torch.Tensor,
 
 
 def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig,
-            bias: torch.Tensor, backend: str = "kernel"):
+            bias: torch.Tensor, backend: str = "kernel",
+            tr: Optional[telemetry.Session] = None, layer: int = 0):
     """x: (B, S, D) -> (y, MoEStats). ``bias`` (E,) is the immune router's
     selection bias. Tokens are dispatched within ``cfg.dispatch_groups``
     independent groups (1 when the token count does not divide), each with
-    its own capacity."""
+    its own capacity. ``tr``: the training step's session; the layer's
+    spans (``layer`` its index) are recorded where its ``forward`` phase is
+    the innermost open span."""
     layers.check_backend(backend)
     if layers.is_dtensor(x):
         return _moe_ffn_mesh(params, x, cfg, bias, backend)
+    rec = tr is not None and tr.innermost() == "forward"
+    if rec:
+        tr.open("moe", x.device, layer=layer)
+        tr.phase("moe.route", x.device)
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s
@@ -158,18 +178,29 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: ModelConfig,
     logits = tok.float() @ params.w_router                       # (G, Tl, E)
     idx, gates, probs = irouter.route(logits, bias, k)
     c = capacity(cfg, tl)
-    ys, keeps = [], []
-    for gi in range(g):
-        expert_in, slot_loc, keep, sizes = _dispatch(tok[gi], idx[gi], e, c)
-        out = _experts(params, expert_in, sizes, cfg, backend)
-        ys.append(_combine(out, slot_loc, gates[gi], keep, tl))
-        keeps.append(keep)
-    y = torch.stack(ys)
-
+    if rec:
+        tr.phase("moe.dispatch", x.device)
+    parts = [_dispatch(tok[gi], idx[gi], e, c) for gi in range(g)]
+    expert_in, slot_loc, keep, sizes = (list(z) for z in zip(*parts))
+    del parts
+    live = torch.stack(sizes).sum()
+    if rec:
+        tr.phase("moe.experts", x.device, live=live)
+    outs = [_experts(params, expert_in[gi], sizes[gi], cfg, backend)
+            for gi in range(g)]
+    del expert_in
+    if rec:
+        tr.phase("moe.combine", x.device)
+    y = torch.stack([_combine(outs[gi], slot_loc[gi], gates[gi], keep[gi], tl)
+                     for gi in range(g)])
+    del outs
     stats = MoEStats(
         load_frac=irouter.load_fractions(idx, e),
         aux_loss=irouter.aux_loss(idx, probs, e),
-        drop_frac=1.0 - torch.stack(keeps).float().mean())
+        drop_frac=1.0 - torch.stack(keep).float().mean(),
+        fill=live.float() / (g * e * c))
+    if rec:
+        tr.close(x.device)
     return y.reshape(b, s, d), stats
 
 
@@ -238,7 +269,8 @@ def _moe_ffn_mesh(params: MoE, x, cfg: ModelConfig, bias, backend: str):
     stats = MoEStats(
         load_frac=load,
         aux_loss=e * torch.sum(load.detach() * probs.mean(dim=(0, 1))),
-        drop_frac=1.0 - keep.float().mean())
+        drop_frac=1.0 - keep.float().mean(),
+        fill=keep.float().sum() / (g * e * c))
     return layers.view(y, b, s, d), stats
 
 

@@ -126,11 +126,12 @@ def _row(bias, li: int):
 
 
 def apply_block(blk: Block, x, cfg: ModelConfig, bias=None,
-                prefix_len: Optional[int] = None):
+                prefix_len: Optional[int] = None, tr=None, layer: int = 0):
     """Full-sequence (training) block. Attention runs the flash kernels
     where ``layers.flash_trains`` says so, else the torch route; the MoE's
     expert products run the torch route, as the JAX package trains through
-    XLA. Returns (x, the MoE's ``MoEStats`` or None)."""
+    XLA. ``tr``, ``layer``: the step's session and the block's index, for
+    the MoE's spans. Returns (x, the MoE's ``MoEStats`` or None)."""
     x = layers.constrain(x, layers.DP, None, None)
     h = rmsnorm(blk.norm1, x, cfg)
     if blk.kind == "ssm":
@@ -143,7 +144,8 @@ def apply_block(blk: Block, x, cfg: ModelConfig, bias=None,
                                  prefix_len=prefix_len)
     h = rmsnorm(blk.norm2, x, cfg)
     if hasattr(blk, "moe"):
-        y, stats = moe.moe_ffn(blk.moe, h, cfg, bias, backend="torch")
+        y, stats = moe.moe_ffn(blk.moe, h, cfg, bias, backend="torch",
+                               tr=tr, layer=layer)
         return x + y, stats
     return x + layers.mlp(blk.mlp, h, cfg), None
 
@@ -172,24 +174,26 @@ def _maybe_remat(fn, cfg: ModelConfig):
 
 
 def apply_stack(stack: nn.ModuleList, x, cfg: ModelConfig, bias=None,
-                prefix_len: Optional[int] = None):
+                prefix_len: Optional[int] = None, tr=None):
     """Full-sequence (training) pass. ``bias``: the (num_layers, E) immune
     router bias. Each repeat of a segment's pattern is the unit ``cfg.remat``
-    wraps, as the JAX package's scan body is. Returns (x, load fractions
-    (num_layers, E) | None, aux loss, drop fraction), the last two the means
+    wraps, as the JAX package's scan body is. ``tr``: the step's session
+    (the MoE layers' spans). Returns (x, load fractions (num_layers, E) |
+    None, aux loss, drop fraction, buffer fill), the last three the means
     over the MoE layers (zero without experts)."""
     blocks = list(stack)
-    loads, auxs, drops = [], [], []
+    loads, auxs, drops, fills = [], [], [], []
     li = 0
     for pattern, reps in segments(cfg):
         for _ in range(reps):
             group = blocks[li:li + len(pattern)]
             rows = [_row(bias, li + i) for i in range(len(pattern))]
 
-            def body(xc, group=group, rows=rows):
+            def body(xc, group=group, rows=rows, li=li):
                 sts = []
-                for blk, b in zip(group, rows):
-                    xc, st = apply_block(blk, xc, cfg, b, prefix_len)
+                for i, (blk, b) in enumerate(zip(group, rows)):
+                    xc, st = apply_block(blk, xc, cfg, b, prefix_len, tr,
+                                         li + i)
                     if st is not None:
                         sts.append(st)
                 return xc, sts
@@ -199,12 +203,13 @@ def apply_stack(stack: nn.ModuleList, x, cfg: ModelConfig, bias=None,
                 loads.append(st.load_frac)
                 auxs.append(st.aux_loss)
                 drops.append(st.drop_frac)
+                fills.append(st.fill)
             li += len(pattern)
     if loads:
         return (x, torch.stack(loads), torch.stack(auxs).mean(),
-                torch.stack(drops).mean())
+                torch.stack(drops).mean(), torch.stack(fills).mean())
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, None, zero, zero
+    return x, None, zero, zero, zero
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,

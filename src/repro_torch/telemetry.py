@@ -14,10 +14,10 @@ recording goes from off to on a new :class:`Session` starts, and
 :func:`last` gives the newest. A session keeps at most ``CAPACITY`` spans in
 memory and counts the ones it dropped; nothing is written out.
 
-On a CUDA device ``train_step`` also records a CUDA event at each phase
-edge (one event per edge, shared by the phases on either side, never
-synchronised); :meth:`Session.device_ms` resolves a span's device
-milliseconds when it is read. :meth:`Session.host_ms` and
+On a CUDA device ``train_step`` and the expert layer also record a CUDA
+event at each phase edge (one event per edge, shared by the phases on
+either side, never synchronised); :meth:`Session.device_ms` resolves a
+span's device milliseconds when it is read. :meth:`Session.host_ms` and
 :meth:`Session.phase_ms` give the per-span host and per-step device
 milliseconds that the benchmark's readers take percentiles of.
 
@@ -32,9 +32,15 @@ Spans (parent > children; ``rid`` the request's id):
   ``retire`` (with the immune ``end_tick``); and per request ``queue``
   (``rid``, no parent), from ``submit`` to its first admission;
 * training, one per ``train_step``: ``train_step`` > ``forward``,
-  ``backward`` (the gradients and their stacking), ``optimizer`` (stacking
-  the leaves, clipping, AdamW, writing back), ``router`` (MoE only), in that
-  order (forward and backward once per microbatch).
+  ``backward`` (the gradients), ``optimizer`` (the global norm and AdamW in
+  place), ``router`` (MoE only), in that order (forward and backward once
+  per microbatch); an MoE step's span holds the step's counters as
+  attributes (device tensors: ``fill``, ``drop``, ``load_cv``);
+* the expert layer, once per MoE layer of the forward pass (not in remat's
+  recompute, which runs under ``backward``): ``forward`` > ``moe``
+  (``layer``) > ``moe.route``, ``moe.dispatch``, ``moe.experts`` (``live``:
+  the buffer rows holding an assignment, a device tensor), ``moe.combine``
+  (with the layer's counters).
 """
 from __future__ import annotations
 
@@ -80,7 +86,7 @@ class Session:
         self.dropped = 0
         self.capacity = capacity
         self._open: list[int] = []      # indices of the open spans, inner last
-        self._phase = False             # the innermost open span is a phase
+        self._phases: list[bool] = []   # whether each open span is a phase
         self._kids = None
 
     # -- recording -----------------------------------------------------------
@@ -102,15 +108,16 @@ class Session:
         span, which closes whatever an exception left open)."""
         if root:
             self._open.clear()
-        self._phase = False
+            self._phases.clear()
         t = time.perf_counter() if t is None else t
         self._open.append(self._put(name, t, None, self._parent(), rid, attrs,
                                     ev))
+        self._phases.append(False)
 
     def end(self, t=None, ev=None) -> None:
         """Close the innermost open span."""
         i = self._open.pop()
-        self._phase = False
+        self._phases.pop()
         t = time.perf_counter() if t is None else t
         if i >= 0:
             self.spans[i].t1, self.spans[i].ev1 = t, ev
@@ -121,17 +128,44 @@ class Session:
         one (``root``: inside none)."""
         self._put(name, t0, t1, -1 if root else self._parent(), rid, None)
 
-    def phase(self, name: Optional[str], device: torch.device) -> None:
+    def phase(self, name: Optional[str], device: torch.device,
+              **attrs) -> None:
         """A phase edge: close the open phase (if any) and open ``name`` (if
         not None) beside it, at one clock reading and, on a CUDA
         ``device``, one event."""
         t = time.perf_counter()
         ev = _event(device)
-        if self._phase:
+        if self._phases and self._phases[-1]:
             self.end(t, ev)
         if name is not None:
-            self.begin(name, t=t, ev=ev)
-            self._phase = True
+            self.begin(name, t=t, ev=ev, **attrs)
+            self._phases[-1] = True
+
+    def open(self, name: str, device: torch.device, **attrs) -> None:
+        """Open a span with an event at its start, for phases inside it."""
+        self.begin(name, ev=_event(device), **attrs)
+
+    def close(self, device: torch.device) -> None:
+        """Close the open phase (if any) and the span around it, at one
+        clock reading and one event."""
+        t = time.perf_counter()
+        ev = _event(device)
+        if self._phases[-1]:
+            self.end(t, ev)
+        self.end(t, ev)
+
+    def innermost(self) -> Optional[str]:
+        """The name of the innermost open span (None if none, or if the
+        session was full when it opened)."""
+        i = self._open[-1] if self._open else -1
+        return self.spans[i].name if i >= 0 else None
+
+    def note(self, **attrs) -> None:
+        """Set attributes of the innermost open span."""
+        i = self._open[-1] if self._open else -1
+        if i >= 0:
+            span = self.spans[i]
+            span.attrs = {**(span.attrs or {}), **attrs}
 
     # -- reading -------------------------------------------------------------
     def named(self, name: str, t0: float = -float("inf"),

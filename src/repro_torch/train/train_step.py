@@ -8,12 +8,15 @@ package's layout (see ``optimizer``), and :func:`state_tree` gives the whole
 state as the JAX package's pytree, which is what a checkpoint stores.
 
 A step consumes its input state, as the JAX package's jitted step donates
-it: the model's parameters are updated in place, so the returned state
-shares the model with the old one.
+it: the model's parameters and the optimizer's moments are updated in place
+(``optimizer.adamw_step``), so the returned state shares them with the old
+one.
 
 Spans (``repro_torch.telemetry``): ``train_step`` reads the tracer's switch
 once; while it records, the step's phases are spans with their device time
-on a card.
+on a card, the expert layers record theirs inside ``forward``, and an MoE
+step notes its counters (``fill``, ``drop``, ``load_cv``: device tensors)
+on its ``train_step`` span.
 """
 from __future__ import annotations
 
@@ -68,39 +71,54 @@ class Metrics(NamedTuple):
     aux_loss: torch.Tensor
     drop_frac: torch.Tensor
     load_cv: torch.Tensor     # mean over layers of expert-load CV (0 if dense)
+    fill: torch.Tensor        # mean over layers of the expert buffer's rows
+    #                           holding an assignment (0 if dense)
 
 
 def _stats(out: model_lib.TrainOut) -> dict:
     load = out.load_frac if out.load_frac is not None \
         else torch.zeros((1, 1), device=out.loss.device)
     return {"load_frac": load, "aux": out.aux_loss.detach(),
-            "drop": out.drop_frac.detach()}
+            "drop": out.drop_frac.detach(), "fill": out.fill.detach()}
 
 
-def loss_and_grads(model: model_lib.Model, cfg: ModelConfig, batch: dict,
-                   router_bias: Optional[torch.Tensor] = None,
-                   tr: Optional[telemetry.Session] = None):
-    """(loss, stats, grads) of one (micro)batch: the detached loss, the
-    ``load_frac`` / ``aux`` / ``drop`` stats, and the gradients as the
-    leaves of the JAX-layout parameter tree (``param_layout``'s flatten
-    order; stacked leaves stacked), each in its parameter's dtype. ``tr``:
-    the step's session, which records the ``forward`` and ``backward``
+def _param_grads(model: model_lib.Model, cfg: ModelConfig, batch: dict,
+                 router_bias: Optional[torch.Tensor] = None,
+                 tr: Optional[telemetry.Session] = None):
+    """(loss, stats, leaves, grads) of one (micro)batch: the detached
+    loss, the ``load_frac`` / ``aux`` / ``drop`` / ``fill`` stats, the
+    ``ParamLeaf`` leaves of the JAX-layout tree, and the gradient of each
+    of their Parameters in order, in its parameter's dtype. ``tr``: the
+    step's session, which records the ``forward`` and ``backward``
     phases."""
     leaves, _ = flatten(model_lib.param_layout(model, cfg))
     flat = [p for leaf in leaves for p in leaf.params]
     if tr is not None:
         tr.phase("forward", flat[0].device)
-    out = model_lib.train_loss(model, cfg, batch, router_bias=router_bias)
+    out = model_lib.train_loss(model, cfg, batch, router_bias=router_bias,
+                               tr=tr)
     if tr is not None:
         tr.phase("backward", flat[0].device)
     with layers.under_mesh():       # the backward meets the same constants
-        g = iter(torch.autograd.grad(out.loss, flat, allow_unused=True,
-                                     materialize_grads=True))
+        grads = list(torch.autograd.grad(out.loss, flat, allow_unused=True,
+                                         materialize_grads=True))
+    return out.loss.detach(), _stats(out), leaves, grads
+
+
+def loss_and_grads(model: model_lib.Model, cfg: ModelConfig, batch: dict,
+                   router_bias: Optional[torch.Tensor] = None,
+                   tr: Optional[telemetry.Session] = None):
+    """(loss, stats, grads) of one (micro)batch, the gradients as the
+    leaves of the JAX-layout parameter tree (``param_layout``'s flatten
+    order; stacked leaves stacked), each in its parameter's dtype."""
+    loss, stats, leaves, flat = _param_grads(model, cfg, batch, router_bias,
+                                             tr)
+    g = iter(flat)
     grads = []
     for leaf in leaves:
         gs = [next(g) for _ in leaf.params]
         grads.append(torch.stack(gs) if leaf.stacked else gs[0])
-    return out.loss.detach(), _stats(out), grads
+    return loss, stats, grads
 
 
 def train_step(state: TrainState, batch: dict, cfg: ModelConfig,
@@ -119,7 +137,7 @@ def train_step(state: TrainState, batch: dict, cfg: ModelConfig,
         grads = loss = stats = None
         for i in range(n):
             mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            l_i, s_i, g_i = loss_and_grads(model, cfg, mb, bias, tr)
+            l_i, s_i, _, g_i = _param_grads(model, cfg, mb, bias, tr)
             if grads is None:
                 grads = [g.float() for g in g_i]
                 loss, stats = l_i, s_i
@@ -132,18 +150,14 @@ def train_step(state: TrainState, batch: dict, cfg: ModelConfig,
         loss = loss * inv
         stats = {k: v * inv for k, v in stats.items()}
     else:
-        loss, stats, grads = loss_and_grads(model, cfg, batch, bias, tr)
+        loss, stats, _, grads = _param_grads(model, cfg, batch, bias, tr)
 
     if tr is not None:
         tr.phase("optimizer", state.step.device)
-    leaves, treedef = flatten(model_lib.param_layout(model, cfg))
     with torch.no_grad():
-        params = unflatten(treedef, [leaf.value() for leaf in leaves])
-        new_params, new_opt, gnorm = opt.adamw_update(
-            unflatten(treedef, grads), state.opt, params, tcfg)
-        del params, grads
-        for leaf, t in zip(leaves, flatten(new_params)[0]):
-            leaf.assign(t)
+        new_opt, gnorm = opt.adamw_step(model_lib.param_layout(model, cfg),
+                                        grads, state.opt, tcfg)
+        del grads
 
         new_router = state.router
         load_cv = torch.zeros((), device=loss.device)
@@ -155,12 +169,15 @@ def train_step(state: TrainState, batch: dict, cfg: ModelConfig,
             load_cv = irouter.load_cv(load).mean()
         if tr is not None:
             tr.phase(None, state.step.device)
+            if state.router is not None:
+                tr.note(fill=stats["fill"], drop=stats["drop"],
+                        load_cv=load_cv)
             tr.end()
 
     metrics = Metrics(loss=loss, grad_norm=gnorm,
                       lr=opt.schedule(tcfg, state.step + 1),
                       aux_loss=stats["aux"], drop_frac=stats["drop"],
-                      load_cv=load_cv)
+                      load_cv=load_cv, fill=stats["fill"])
     return TrainState(params=model, opt=new_opt, router=new_router,
                       step=state.step + 1), metrics
 

@@ -1001,3 +1001,36 @@ def test_trainer_through_flash_resumes_bitwise(card, tmp_path):
     la, _ = ckpt.flatten(ts.state_tree(state_a, cfg))
     lb, _ = ckpt.flatten(ts.state_tree(state_b, cfg))
     assert all(torch.equal(a, b) for a, b in zip(la, lb, strict=True))
+
+
+# the granite cell's state at the published depth: bf16 weights and
+# gradients 6.6 GB each, fp32 moments 26.4 GB; with the update in place and
+# its temporaries near 1 GB, activations (one recomputed layer, the 8,192 x
+# 49,155 fp32 logits) leave the peak well under this
+GRANITE_PEAK_BYTES = 60e9
+
+
+def test_granite_train_step_at_full_depth_fits_one_card(card):
+    """granite-moe-3b-a800m at its published widths and all 32 layers, the
+    benchmark cell's batch (4 x 2,048), full remat, fp32 moments: two train
+    steps peak under GRANITE_PEAK_BYTES with finite losses."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import pipeline
+    from repro_torch.train import train_step as ts
+    cfg = dataclasses.replace(configs.get_config("granite-moe-3b-a800m"),
+                              remat="full")
+    assert (cfg.num_layers, cfg.num_experts, cfg.d_model) == (32, 40, 1536)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=0, decay_steps=10000,
+                       schedule="cosine")
+    torch.cuda.reset_peak_memory_stats()
+    state = ts.init_train_state(torch.Generator(device=card).manual_seed(7),
+                                cfg, tcfg, device=card)
+    data = pipeline.init_data_state(card)
+    for _ in range(2):
+        batch, data = pipeline.sample_batch(cfg, 4, 2048, data)
+        state, met = ts.train_step(state, batch, cfg, tcfg)
+        assert torch.isfinite(met.loss)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"granite train step peak {peak / 1e9:.2f} GB")
+    assert peak < GRANITE_PEAK_BYTES

@@ -167,3 +167,32 @@ def test_capacity_matches_jax(tokens):
     full = configs.get_config("granite-moe-3b-a800m")
     jfull = jconfigs.get_config("granite-moe-3b-a800m")
     assert moe.capacity(full, tokens) == jmoe.capacity(jfull, tokens)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_counters_match_a_hand_worked_routing(groups):
+    """Eight tokens, four experts, top-1, capacity C = 4 (1.25 x 8 / 4
+    rounded up to 4): tokens 0-5 score highest on expert 0 and 6-7 on
+    expert 1. In one group expert 0 overflows (6 > 4): 2 of 8 assignments
+    dropped, 6 of the 16 buffer rows live, loads (6, 2, 0, 0) / 8. In two
+    groups of four (C = 4 each) nothing overflows: 8 of 32 rows live."""
+    _, cfg = _cfgs(num_experts=4, experts_per_token=1, capacity_factor=1.25,
+                   dispatch_groups=groups)
+    layer = moe.MoE(cfg, torch.Generator().manual_seed(0), "cpu")
+    with torch.no_grad():
+        layer.w_router.zero_()
+        layer.w_router[0, :2] = torch.tensor([1.0, -1.0])
+    x = torch.zeros(1, 8, cfg.d_model)
+    x[0, :, 0] = torch.tensor([1.0] * 6 + [-1.0] * 2)
+    _, st = moe.moe_ffn(layer, x, cfg, torch.zeros(4), backend="torch")
+    load = [0.75, 0.25, 0.0, 0.0]
+    assert st.load_frac.tolist() == load
+    if groups == 1:
+        assert float(st.drop_frac) == 0.25
+        assert float(st.fill) == 6 / 16
+    else:
+        assert float(st.drop_frac) == 0.0
+        assert float(st.fill) == 8 / 32
+    mean = sum(load) / 4
+    cv = (sum((f - mean) ** 2 for f in load) / 4) ** 0.5 / mean
+    assert float(router.load_cv(st.load_frac)) == pytest.approx(cv, rel=1e-6)

@@ -8,6 +8,7 @@ decayed, and factored when R > 1, while ``final_norm``'s (D,) is not.
 Tolerances: fp32 parameters and moments within 1e-6 of each leaf's max-abs
 after five steps (the two packages reduce the norms and factored means in
 another order); bf16 leaves within one bf16 ulp of that max."""
+import copy
 import dataclasses
 
 import jax
@@ -22,7 +23,7 @@ from repro.models import model as jmodel
 from repro.train import optimizer as jopt
 from repro_torch import configs
 from repro_torch.configs.base import TrainConfig
-from repro_torch.dist.checkpoint import flatten
+from repro_torch.dist.checkpoint import flatten, unflatten
 from repro_torch.models import model as model_lib
 from repro_torch.train import optimizer as opt
 
@@ -259,3 +260,145 @@ def test_param_layout_shapes_are_the_jax_leaves():
     assert layout["final_norm"]["scale"].shape == (cfg.d_model,)
     assert layout["stack"][0][0]["mixer"]["wq"].shape == \
         (3, cfg.d_model, cfg.num_heads * cfg.head_dim)
+
+
+# -- the in-place update against the stacked update it replaced ---------------
+def _stacked_update(grads, state, params, cfg):
+    """AdamW as it stood before it went in place, frozen: the parameters
+    and gradients stacked per leaf, a clipped copy of every gradient, each
+    leaf updated whole."""
+    grads, gnorm = opt.clip_by_global_norm(grads, cfg.grad_clip)
+    step = state.step + 1
+    lr = opt.schedule(cfg, step)
+    b1, b2 = cfg.beta1, cfg.beta2
+    c1 = 1.0 - b1 ** step.float()
+    c2 = 1.0 - b2 ** step.float()
+
+    def upd(p, g, mu, nu):
+        gf = g.float()
+        mu_n = b1 * mu.float() + (1 - b1) * gf
+        nu_n = opt._nu_update(nu, gf.square(), b2)
+        u = (mu_n / c1) / (torch.sqrt(opt._nu_value(nu_n) / c2) + cfg.eps)
+        if p.dim() >= 2:
+            u = u + cfg.weight_decay * p.float()
+        mu.copy_(mu_n)
+        if isinstance(nu, dict):
+            for k, v in nu_n.items():
+                nu[k].copy_(v)
+        else:
+            nu.copy_(nu_n)
+        return (p.float() - lr * u).to(p.dtype)
+
+    flat_p, treedef = flatten(params)
+    new_p = [upd(p, g, m, n) for p, g, m, n in zip(
+        flat_p, flatten(grads)[0], flatten(state.mu)[0],
+        opt._leaves_up_to(treedef, state.nu), strict=True)]
+    return (unflatten(treedef, new_p),
+            opt.AdamWState(step=step, mu=state.mu, nu=state.nu), gnorm)
+
+
+def _two_ways(arch, factored, dtype, state_dtype, clip, steps=2):
+    """Two steps of AdamW on one smoke model's state, in place
+    (``adamw_step``) and stacked (``_stacked_update``), from the same
+    weights and gradients; ``clip``: the global norm's bound as a share of
+    the first step's norm. Returns (in-place tree, stacked tree, norms)."""
+    cfg = dataclasses.replace(configs.get_config(arch).smoke(), dtype=dtype)
+    model = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
+                                  "cpu")
+    ref = copy.deepcopy(model)
+    sd = getattr(torch, state_dtype)
+    st_a = opt.init_opt_state(model_lib.param_layout(model, cfg), sd,
+                              factored)
+    st_b = opt.init_opt_state(model_lib.param_layout(ref, cfg), sd, factored)
+    gen = torch.Generator().manual_seed(1)
+    norms, tcfg = [], None
+    for _ in range(steps):
+        layout = model_lib.param_layout(model, cfg)
+        leaves, treedef = flatten(layout)
+        grads = [(3 * torch.randn(p.shape, generator=gen)).to(p.dtype)
+                 for leaf in leaves for p in leaf.params]
+        if tcfg is None:
+            total = float(torch.sqrt(sum(g.double().square().sum()
+                                         for g in grads)))
+            tcfg = TrainConfig(learning_rate=1e-2, warmup_steps=0,
+                               grad_clip=clip * total)
+        it = iter(grads)
+        stacked = [torch.stack([next(it) for _ in leaf.params])
+                   if leaf.stacked else next(it) for leaf in leaves]
+        st_a, na = opt.adamw_step(layout, [g.clone() for g in grads], st_a,
+                                  tcfg)
+        tree, st_b, nb = _stacked_update(unflatten(treedef, stacked), st_b,
+                                         model_lib.params_tree(ref, cfg),
+                                         tcfg)
+        model_lib.load_params(ref, cfg, tree)
+        norms.append((float(na), float(nb)))
+    return ((model_lib.params_tree(model, cfg), st_a),
+            (model_lib.params_tree(ref, cfg), st_b), norms)
+
+
+CASES = [("bfloat16", "float32"), ("float32", "float32"),
+         ("bfloat16", "bfloat16")]
+# the global norm: fp32 sums of the ~4e5 squares in another order (per
+# Parameter in place, per stacked leaf before)
+NORM_TOL = 1e-5
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("factored", [False, True])
+@pytest.mark.parametrize("dtype,state_dtype", CASES)
+def test_in_place_equals_stacked_bitwise_where_clip_does_not_bind(
+        arch, factored, dtype, state_dtype):
+    a, b, norms = _two_ways(arch, factored, dtype, state_dtype, clip=10.0)
+    la, lb = flatten(a)[0], flatten(b)[0]
+    assert len(la) == len(lb)
+    assert all(torch.equal(x, y) for x, y in zip(la, lb))
+    for na, nb in norms:
+        assert na == pytest.approx(nb, rel=NORM_TOL)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("factored", [False, True])
+@pytest.mark.parametrize("dtype,state_dtype", CASES)
+def test_in_place_equals_stacked_where_clip_binds(arch, factored, dtype,
+                                                  state_dtype):
+    """The two sum the norm in another order, so the clip scale may differ
+    by a rounding: the leaves agree within 1e-6 of their max-abs in fp32,
+    and where the clipped gradient is rounded to bf16, within one bf16 ulp
+    of it (a rounding of the gradient that flips)."""
+    a, b, norms = _two_ways(arch, factored, dtype, state_dtype, clip=0.5)
+    tol = 2 ** -7 if "bfloat16" in (dtype, state_dtype) else 1e-6
+    for x, y in zip(flatten(a)[0], flatten(b)[0], strict=True):
+        if x.dim():
+            assert _rel(y.float().numpy(), x.float()) <= tol
+    for na, nb in norms:
+        assert na == pytest.approx(nb, rel=NORM_TOL)
+
+
+@pytest.mark.parametrize("factored", [False, True])
+def test_update_groups_stay_within_their_budget(factored, monkeypatch):
+    """With ``GROUP_BYTES`` below the largest leaf's temporaries, leaves
+    are cut into pieces along their first dimension and every multi-tensor
+    group holds at most a twelfth of ``GROUP_BYTES`` in elements (three
+    fp32 temporaries alive at once, fp32 moments); the result stays
+    bitwise."""
+    cfg = configs.get_config("granite-moe-3b-a800m").smoke()
+    model = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
+                                  "cpu")
+    row = max(p[0].numel() for p in model.parameters() if p.dim() > 1)
+    largest = max(p.numel() for p in model.parameters())
+    assert largest > 2 * row
+    monkeypatch.setattr(opt, "GROUP_BYTES", 12 * 2 * row)
+    assert opt._group_elems(torch.float32) == 2 * row
+    sizes = []
+    real = opt._group_update
+
+    def counted(ps, *args):
+        sizes.append(sum(p.numel() for p in ps))
+        return real(ps, *args)
+
+    monkeypatch.setattr(opt, "_group_update", counted)
+    a, b, _ = _two_ways("granite-moe-3b-a800m", factored, "bfloat16",
+                        "float32", clip=10.0)
+    assert sizes and max(sizes) <= 2 * row
+    assert all(torch.equal(x, y) for x, y in zip(flatten(a)[0],
+                                                 flatten(b)[0]))

@@ -5,6 +5,7 @@ active step turn it on, each time in a new session), the spans of
 and the benchmark's eight readers of the spans (``portbench/metrics``) on
 hand-placed spans and device activity. No JAX: the engine is held to its
 own run with recording off."""
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -21,7 +22,7 @@ from portbench.core.trace import Trace  # noqa: E402
 from repro_torch import configs, telemetry  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
-from repro_torch.models import model  # noqa: E402
+from repro_torch.models import model, moe  # noqa: E402
 from repro_torch.serve import engine, traces  # noqa: E402
 from repro_torch.train import train_step as ts  # noqa: E402
 
@@ -213,6 +214,71 @@ def test_train_step_records_its_phases_with_host_times_only_on_cpu(arch,
     assert all(p.t1 > p.t0 and s.device_ms(p) is None for p in phases)
 
 
+MOE_STAGES = ["moe.route", "moe.dispatch", "moe.experts", "moe.combine"]
+
+
+def _moe_step(accum, remat="full"):
+    cfg = dataclasses.replace(
+        configs.get_config("granite-moe-3b-a800m").smoke(), remat=remat)
+    tcfg = TrainConfig(accum_steps=accum)
+    state = ts.init_train_state(torch.Generator().manual_seed(0), cfg, tcfg,
+                                device="cpu")
+    batch, _ = pipeline.sample_batch(cfg, 2, 16,
+                                     pipeline.init_data_state("cpu"), seed=3)
+    return cfg, tcfg, state, batch
+
+
+@pytest.mark.parametrize("accum,remat", [(1, "full"), (2, "full"),
+                                         (1, "none")])
+def test_moe_spans_nest_under_forward_once_per_layer(accum, remat):
+    """One ``moe`` span a layer under each microbatch's ``forward`` (none
+    from remat's recompute under ``backward``), its four stages as phases
+    edge to edge; the step's span holds the step's counters."""
+    cfg, tcfg, state, batch = _moe_step(accum, remat)
+    with telemetry.recording() as s:
+        _, met = ts.train_step(state, batch, cfg, tcfg)
+    (step,) = s.named("train_step")
+    forwards = [c for c in s.children(step) if c.name == "forward"]
+    assert len(forwards) == accum
+    assert len(s.named("moe")) == cfg.num_layers * accum
+    for f in forwards:
+        layers_ = s.children(f)
+        assert [x.name for x in layers_] == ["moe"] * cfg.num_layers
+        assert [x.attrs["layer"] for x in layers_] == \
+            list(range(cfg.num_layers))
+        for m in layers_:
+            parts = s.children(m)
+            assert [x.name for x in parts] == MOE_STAGES
+            assert f.t0 <= m.t0 <= parts[0].t0 and parts[-1].t1 == m.t1
+            for a, b in zip(parts, parts[1:]):
+                assert a.t1 == b.t0
+    for name in ("fill", "drop", "load_cv"):
+        field = {"drop": "drop_frac"}.get(name, name)
+        assert torch.equal(step.attrs[name], getattr(met, field))
+    live = sum(int(x.attrs["live"]) for x in s.named("moe.experts"))
+    rows = cfg.num_experts * moe.capacity(cfg, 2 * 16 // accum)
+    assert live / (cfg.num_layers * accum * rows) == \
+        pytest.approx(float(met.fill), rel=1e-6)
+    assert 0 < float(met.fill) <= 1 / cfg.capacity_factor
+
+
+def test_moe_layer_records_no_span_and_no_event_with_recording_off(
+        monkeypatch):
+    """Off: no session, no span, no event asked for. On: one event at each
+    edge, shared by the phases on either side (the step's five, six a
+    layer)."""
+    cfg, tcfg, state, batch = _moe_step(1)
+    edges = []
+    monkeypatch.setattr(telemetry, "_event", lambda device: edges.append(1))
+    before = telemetry.last()
+    state, _ = ts.train_step(state, batch, cfg, tcfg)
+    assert telemetry.last() is before and edges == []
+    with telemetry.recording() as s:
+        ts.train_step(state, batch, cfg, tcfg)
+    assert len(edges) == 5 + 6 * cfg.num_layers
+    assert len(s.named("moe")) == cfg.num_layers
+
+
 # -- the benchmark's readers --------------------------------------------------
 READERS = {                     # metric -> its value on the spans below
     "admit_wait_p50_ms.serve": 2.0,
@@ -359,6 +425,88 @@ def test_train_readers_need_device_times():
     for metric in READERS:
         if metric.endswith(".train"):
             assert run.cell.reader(metric)(run) is None
+
+
+# the expert layer's readers: three steps of two MoE layers; each moe span's
+# stages in device ms, its experts' live rows, the router phase, counters
+MOE_STEPS = [dict(moe=[(0, 10), (10, 22)], router=(30, 32), live=50_000,
+                  fill=0.5, drop=0.1, load_cv=0.3),
+             dict(moe=[(100, 114), (114, 130)], router=(140, 143),
+                  live=40_000, fill=0.6, drop=0.2, load_cv=0.4),
+             dict(moe=[(200, 220), (220, 240)], router=(250, 254),
+                  live=30_000, fill=0.7, drop=0.3, load_cv=0.5)]
+# experts_roofline: each experts stage lasts 1 ms; at granite's D 1,536 and
+# F 512 a live row costs 6 D F operations, the bound at 989 TFLOP/s (the
+# bytes, 2 bytes x (2 D a row + 3 x 40 D F), bind less)
+_OPS = 6 * 1536 * 512 * (50_000 + 40_000 + 30_000) * 2
+MOE_READERS = {
+    "moe_fwd_ms_p50.train": 30.0,
+    "router_ms_p50.train": 3.0,
+    "expert_fill.train": 60.0,
+    "drop_share.train": 20.0,
+    "load_cv.train": 40.0,
+    "experts_roofline.train": 100.0 * _OPS / 989e12 / 6e-3,
+}
+
+
+def _place_moe_training(s):
+    for i, st in enumerate(MOE_STEPS):
+        s.begin("train_step", root=True, t=_at(100 + 200 * i))
+        s.begin("forward", t=_at(101 + 200 * i), ev=_Event(st["moe"][0][0]))
+        for li, (a, b) in enumerate(st["moe"]):
+            s.begin("moe", t=_at(102 + 200 * i + li), ev=_Event(a), layer=li)
+            edges = [a, a + 1, a + 2, a + 3, b]      # experts: 1 ms
+            for j, stage in enumerate(MOE_STAGES):
+                attrs = {"live": torch.tensor(st["live"])} \
+                    if stage == "moe.experts" else {}
+                s.begin(stage, t=_at(102.1 + 200 * i + li + 0.1 * j),
+                        ev=_Event(edges[j]), **attrs)
+                s.end(t=_at(102.15 + 200 * i + li + 0.1 * j),
+                      ev=_Event(edges[j + 1]))
+            s.end(t=_at(102.9 + 200 * i + li), ev=_Event(b))
+        s.end(t=_at(110 + 200 * i), ev=_Event(st["moe"][-1][1]))
+        s.begin("router", t=_at(120 + 200 * i), ev=_Event(st["router"][0]))
+        s.end(t=_at(121 + 200 * i), ev=_Event(st["router"][1]))
+        s.note(**{k: torch.tensor(st[k]) for k in ("fill", "drop",
+                                                    "load_cv")})
+        s.end(t=_at(190 + 200 * i))
+
+
+def _moe_run(tr):
+    from portbench.core import peaks
+    from portbench.core.report import Run
+    run = Run(bench_spec.Cell("granite-moe-3b.train", ROOT), "cuda", tr)
+    run.peaks = peaks.peak("NVIDIA H100 80GB HBM3")
+    return run
+
+
+@pytest.mark.parametrize("metric", sorted(MOE_READERS))
+def test_moe_reader_reads_hand_placed_spans(metric):
+    with telemetry.recording() as s:
+        _place_moe_training(s)
+    run = _moe_run(_window())
+    experts = s.named("moe.experts")
+    assert [s.device_ms(x) for x in experts] == [1.0] * 6
+    assert run.cell.reader(metric)(run) == pytest.approx(MOE_READERS[metric],
+                                                         rel=1e-6)
+
+
+@pytest.mark.parametrize("metric", sorted(MOE_READERS))
+def test_moe_reader_reads_nothing_from_dense_spans_or_without_the_tracer(
+        metric, monkeypatch):
+    """The minicpm cell's spans hold no expert layer; the parent of the
+    tracer's change runs the same readers."""
+    with telemetry.recording() as s:
+        _place_training(s)
+    assert _moe_run(_window()).cell.reader(metric)(_moe_run(_window())) \
+        is None
+    import repro_torch
+    with telemetry.recording() as s:
+        _place_moe_training(s)
+    monkeypatch.delattr(repro_torch, "telemetry")
+    monkeypatch.setitem(sys.modules, "repro_torch.telemetry", None)
+    run = _moe_run(_window())
+    assert run.cell.reader(metric)(run) is None
 
 
 # -- tools/span_report.py -----------------------------------------------------

@@ -157,8 +157,8 @@ def test_apply_stack_layer_order_and_stats(arch):
     _, cfg, _, _, _, model, tb, tbias = _setup(arch, {})
     x, _ = model_lib._inputs(model, cfg, tb)
     with torch.no_grad():
-        y, load, aux, drop = transformer.apply_stack(model.blocks, x, cfg,
-                                                     bias=tbias)
+        y, load, aux, drop, fill = transformer.apply_stack(model.blocks, x,
+                                                           cfg, bias=tbias)
         stats = []
         for li, blk in enumerate(model.blocks):
             x, st = transformer.apply_block(
@@ -171,8 +171,10 @@ def test_apply_stack_layer_order_and_stats(arch):
                                              for s in stats]).mean())
         assert torch.equal(drop, torch.stack([s.drop_frac
                                               for s in stats]).mean())
+        assert torch.equal(fill, torch.stack([s.fill for s in stats]).mean())
     else:
         assert load is None and float(aux) == 0 and float(drop) == 0
+        assert float(fill) == 0
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "recurrentgemma-9b",

@@ -97,7 +97,8 @@ def _step_matches_jax(jcfg, cfg, jt, tt, jstate, state):
 def test_accumulation_sums_in_fp32():
     """With accum_steps 2 the gradients are the fp32 mean of the two
     microbatches' (bf16 parameters give bf16 microbatch gradients): the
-    step equals AdamW applied to that mean by hand."""
+    step equals AdamW applied to that mean by hand, in place on the
+    Parameters as the step applies it (``adamw_step``)."""
     from repro_torch.models import model as model_lib
     from repro_torch.train import optimizer as opt
     cfg = dataclasses.replace(configs.get_config("smollm-360m").smoke(),
@@ -119,10 +120,10 @@ def test_accumulation_sums_in_fp32():
     assert [g.dtype for g in halves[0]] == [leaf.dtype for leaf in leaves]
     assert torch.bfloat16 in {g.dtype for g in halves[0]}
     mean = [(a.float() + b) * 0.5 for a, b in zip(*halves)]
-    params, _, _ = opt.adamw_update(
-        unflatten(treedef, mean), ref.opt,
-        model_lib.params_tree(ref.params, cfg), tt)
-    for a, b in zip(flatten(params)[0],
+    per_param = [g for leaf, m in zip(leaves, mean)
+                 for g in (m.unbind(0) if leaf.stacked else [m])]
+    opt.adamw_step(unflatten(treedef, leaves), per_param, ref.opt, tt)
+    for a, b in zip(flatten(model_lib.params_tree(ref.params, cfg))[0],
                     flatten(model_lib.params_tree(new.params, cfg))[0]):
         assert torch.equal(a, b)
 
